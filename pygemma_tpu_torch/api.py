@@ -1,0 +1,384 @@
+"""Public driver: ``pygemma(Y, X, W, K, ...) -> pandas.DataFrame``.
+
+API-compatible with the reference driver (``lmm.pygemma``, reference
+lmm/lmm.py:87) and with ``pygemma_tpu.pygemma``: the same arguments, the same
+table.  The scan runs eagerly on a torch device, SNP block by SNP block.
+
+Output schema: ``beta, se_beta, tau, lambda, F_wald, p_wald`` (+ ``SNPs``
+when snp names are given; reference lmm/lmm.py:403-411), extended with
+``p_lrt`` / ``p_score`` / ``logl_H1`` when those tests are requested.
+
+This package covers the main path: a dense kinship (or precomputed
+eigenvalues with ``eigen=False``), genotypes in memory, phenotypes scanned
+one column at a time.  Low-rank kinships, quantized or 2-bit genotypes,
+device meshes and the divide-and-conquer eigh raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import hashlib
+from typing import Optional, Sequence
+
+import numpy as np
+import pandas as pd
+import torch
+from scipy import stats
+
+from .config import GwasConfig, from_env
+from .core.assoc import NullFit, assoc_block, fit_null
+from .core.eigen import auto_eigendecompose, loading_transform, rotate
+from .core.grams import pair_products
+from .core.solver import LambdaProblem, solve_lambda
+from .io.streaming import SnpBlockStreamer
+from .utils.checkpoint import RunCheckpoint
+from .utils.logging import StageLogger
+
+#: single-entry device-resident eigendecomposition cache, keyed by the
+#: kinship fingerprint and device: repeated ``pygemma`` calls against the
+#: same kinship (multi-phenotype studies, warm-then-measure benchmarks)
+#: reuse the on-device (ev, U).  One entry, so stale bases never pile up.
+_EIGEN_DEV_CACHE: dict = {}
+
+
+def _check_matmul_precision() -> None:
+    """Refuse to run with TF32 matmuls: the REML scalars cancel badly, and
+    the JAX package holds every matmul to float32 grade (Precision.HIGH)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    if tf32 or precision != "highest":
+        raise RuntimeError(
+            "the LMM scan needs full float32 matmuls, but "
+            f"torch.backends.cuda.matmul.allow_tf32 is {tf32} and "
+            f"torch.get_float32_matmul_precision() is {precision!r} "
+            "(want False and 'highest')")
+
+
+def _resolve_device(device) -> torch.device:
+    """The compute device; CUDA unless the caller asks for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the scan "
+            "on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    _check_matmul_precision()
+    return dev
+
+
+def _reject_unported(K, X, mesh, cfg: GwasConfig) -> None:
+    kind = type(K).__name__
+    if kind == "LowRankKinship":
+        raise NotImplementedError(
+            "low-rank kinships are not ported yet (later slice: low-rank / "
+            "implicit complement)")
+    if type(X).__name__ in ("QuantizedMatrix", "PackedMatrix"):
+        raise NotImplementedError(
+            f"{type(X).__name__} genotypes are not ported yet (later slice: "
+            "quantized and packed streaming)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (later slice: multi-GPU)")
+    if cfg.eigh_backend == "dc":
+        raise NotImplementedError(
+            "eigh_backend='dc' is not ported yet (later slice: large-n eigh)")
+
+
+def _result_keys(cfg) -> list:
+    """Device-result rows of a stacked association block, in static order."""
+    keys = ["beta", "se_beta", "tau", "lam", "F_wald"]
+    if "lrt" in cfg.tests:
+        keys += ["lambda_ml", "logl_H1"]
+    if "score" in cfg.tests:
+        keys += ["F_score"]
+    return keys
+
+
+def _assoc_block(ev, W, y, Xblock, cfg, null_arr, de) -> torch.Tensor:
+    """One SNP block -> a single stacked (n_keys, B) tensor, so the driver
+    pulls one buffer per block."""
+    null = (NullFit(null_arr[0], null_arr[1], null_arr[2])
+            if null_arr is not None else None)
+    res = assoc_block(ev, W, y, Xblock, cfg, null=null, de=de, pvalues=False)
+    d = res._asdict()
+    return torch.stack([d[k] for k in _result_keys(cfg)])
+
+
+def _fit_null(ev, W, y, cfg) -> torch.Tensor:
+    nf = fit_null(ev, W, y, cfg)
+    return torch.stack([nf.lambda_reml, nf.lambda_ml, nf.loglik_ml])
+
+
+def estimate_lambda(eigenVals, Y, W, restricted: bool = True,
+                    grid: bool = False,
+                    config: Optional[GwasConfig] = None,
+                    device="cuda") -> float:
+    """Variance-ratio estimate for a single design (rotated inputs).
+
+    Public analogue of the reference's ``calc_lambda_restricted`` /
+    ``calc_lambda`` entry points (pygemma_model.pyx:64, lmm/lmm.py:22-84):
+    eigenVals (n,), Y (n,) outcome, W (n, q) design -- all already rotated
+    into the kinship eigenbasis.
+    """
+    dev = _resolve_device(device)
+    cfg = (config or from_env()).replace(grid=grid)
+    dtype = np.dtype(cfg.dtype)
+    ev = torch.as_tensor(np.asarray(eigenVals, dtype).reshape(-1)).to(dev)
+    Wd = torch.as_tensor(np.asarray(W, dtype)).to(dev)
+    v = torch.as_tensor(np.asarray(Y, dtype).reshape(-1, 1)).to(dev)
+    prob = LambdaProblem(ev, Wd, pair_products(Wd), v, v * v, Wd.shape[0],
+                         Wd.shape[1], False, restricted)
+    lam, _ = solve_lambda(prob, cfg)
+    return float(lam[0])
+
+
+def _kinship_fingerprint(Karr: np.ndarray, max_samples: int = 4096) -> str:
+    """Content hash of K for the eigen-checkpoint key.
+
+    Hashes a strided byte sample plus shape and dtype -- the same bytes as
+    ``pygemma_tpu.api._kinship_fingerprint``, so a run_dir eigen file
+    written by either package is found by the other."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr((Karr.shape, Karr.dtype.str)).encode())
+    stride = max(1, int(np.ceil(np.sqrt(Karr.size / max_samples))))
+    sample = np.ascontiguousarray(Karr[::stride, ::stride]) \
+        if Karr.ndim == 2 else np.ascontiguousarray(Karr[::stride])
+    h.update(sample.tobytes())
+    return h.hexdigest()
+
+
+def _host_pvalues(res: dict, n: int, c: int, tests) -> None:
+    """Compute p-values on host in float64 with scipy for exact parity with
+    the reference's ``stats.f.sf`` (lmm/lmm.py:482)."""
+    df = n - c - 1
+    res["p_wald"] = stats.f.sf(np.asarray(res["F_wald"], np.float64), 1, df)
+    if "lrt" in tests:
+        res["p_lrt"] = stats.chi2.sf(np.asarray(res.pop("D_lrt"), np.float64), 1)
+    if "score" in tests:
+        res["p_score"] = stats.f.sf(np.asarray(res.pop("F_score"), np.float64), 1, df)
+
+
+def pygemma(
+    Y,
+    X,
+    W=None,
+    K=None,
+    Z=None,
+    snps: Optional[Sequence[str]] = None,
+    verbose: int = 0,
+    disable_checks: bool = True,
+    de: bool = False,
+    grid: bool = False,
+    eigen: bool = True,
+    nproc: Optional[int] = None,  # accepted for API parity
+    tests: Optional[Sequence[str]] = None,
+    config: Optional[GwasConfig] = None,
+    run_dir: Optional[str] = None,
+    mesh=None,
+    device="cuda",
+) -> pd.DataFrame:
+    """Genome-wide LMM association scan (GEMMA method) on a torch device.
+
+    Args mirror the reference driver (lmm/lmm.py:87-106):
+      Y: (n,) or (n,1) phenotype (or (n,k): each column scanned in turn,
+         results stacked with a ``pheno`` column).
+      X: (n, p) genotype matrix.
+      W: (n, c) covariates; None -> intercept only.
+      K: (n, n) kinship, or, when ``eigen=False``, the precomputed eigenvalue
+         vector of K with X/Y/W already rotated.
+      Z: optional loading matrix, K <- Z K Z' (lmm/lmm.py:124-125).
+      de: differential-expression mode -- swaps roles of x and y
+         (lmm/lmm.py:498-532).
+      grid: pure grid-search lambda (pygemma_model.pyx:99-132).
+      tests: any of "wald", "lrt", "score".
+      device: "cuda" (the default) or "cpu"; without a CUDA device the
+         default raises instead of falling back.
+    """
+    dev = _resolve_device(device)
+    cfg = config or from_env()
+    if grid:
+        cfg = cfg.replace(grid=True)
+    if tests is not None and tuple(tests) != cfg.tests:
+        cfg = cfg.replace(tests=tuple(tests))
+    _reject_unported(K, X, mesh, cfg)
+    log = StageLogger(verbose)
+
+    dtype = np.dtype(cfg.dtype)
+    Y = np.asarray(Y, dtype=dtype)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    X = np.asarray(X, dtype=dtype)
+    n, p = X.shape
+    W = np.ones((n, 1), dtype=dtype) if W is None else np.asarray(W, dtype)
+    c = W.shape[1]
+
+    if not disable_checks:
+        for name, arr in (("X", X), ("Y", Y), ("W", W)):
+            if np.isnan(arr).any():
+                raise ValueError(f"NaNs present in {name}")
+
+    def to_dev(a):
+        return torch.as_tensor(np.asarray(a, dtype)).to(dev)
+
+    if Z is not None and eigen:
+        K = loading_transform(to_dev(Z), to_dev(K)).cpu().numpy()
+
+    ckpt = None
+    eig_key = ""
+    if eigen and K is not None:
+        eig_key = f"{_kinship_fingerprint(np.asarray(K))}|{cfg.dtype}"
+    if run_dir is not None:
+        ckpt = RunCheckpoint(run_dir)
+        ckpt.clean_stale()
+        # Saved blocks are only resumable under the same settings.
+        run_meta = {"tests": list(cfg.tests), "grid": cfg.grid,
+                    "dtype": cfg.dtype, "de": de, "snp_block": cfg.snp_block}
+        prev_meta = ckpt.load_meta()
+        if prev_meta is None:
+            ckpt.save_meta(run_meta)
+        elif prev_meta != run_meta:
+            raise ValueError(
+                f"run_dir {run_dir} holds blocks computed with different "
+                f"settings ({prev_meta}); use a fresh run_dir for "
+                f"{run_meta}"
+            )
+
+    # --- eigendecomposition + rotation (lmm/lmm.py:151-167, 243-246) -------
+    if eigen:
+        cache_key = (eig_key, str(dev))
+        dev_cached = _EIGEN_DEV_CACHE.get(cache_key)
+        if dev_cached is not None:
+            ev_dev, U_dev = dev_cached
+        else:
+            cached = ckpt.load_eigen(eig_key) if ckpt is not None else None
+            if cached is not None:
+                ev_dev, U_dev = to_dev(cached[0]), to_dev(cached[1])
+            else:
+                with log.stage("eigendecomposition"):
+                    ev_dev, U_dev = auto_eigendecompose(
+                        np.asarray(K, dtype), cfg.eigh_backend, dtype, dev)
+                if ckpt is not None:
+                    ckpt.save_eigen(ev_dev.cpu().numpy(), U_dev.cpu().numpy(),
+                                    eig_key)
+            _EIGEN_DEV_CACHE.clear()
+            _EIGEN_DEV_CACHE[cache_key] = (ev_dev, U_dev)
+        with log.stage("rotation of W, Y"):
+            W_dev = rotate(U_dev, to_dev(W))
+            Y_dev = rotate(U_dev, to_dev(Y))
+    else:
+        ev_dev = torch.clamp_min(to_dev(np.asarray(K).reshape(-1)), 0.0)
+        U_dev = None
+        W_dev = to_dev(W)
+        Y_dev = to_dev(Y)
+
+    B = min(cfg.snp_block, max(p, 1))
+    n_pheno = Y.shape[1]
+    frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n,
+                                 p, B, log, ckpt, dev)
+    results_df = pd.concat(frames, ignore_index=True) if len(frames) > 1 else frames[0]
+    if snps is not None:
+        results_df["SNPs"] = (
+            list(snps) * n_pheno if n_pheno > 1 else list(snps)
+        )
+    return results_df
+
+
+def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
+                        log, ckpt, dev):
+    n_pheno = Y_dev.shape[1]
+    c = W_dev.shape[1]
+    frames = []
+    keys = _result_keys(cfg)
+    for ph in range(n_pheno):
+        y_dev = Y_dev[:, ph]
+        null_arr = None
+        if ("lrt" in cfg.tests) or ("score" in cfg.tests):
+            with log.stage("null-model fit"):
+                null_arr = _fit_null(ev_dev, W_dev, y_dev, cfg)
+
+        cols = {k: [] for k in ("beta", "se_beta", "tau", "lambda", "F_wald")}
+        if "lrt" in cfg.tests:
+            cols["lambda_ml"] = []
+            cols["logl_H1"] = []
+            cols["D_lrt"] = []
+        if "score" in cfg.tests:
+            cols["F_score"] = []
+
+        null_ml = float(null_arr[2]) if null_arr is not None else None
+
+        def block_to_cols(stacked: np.ndarray, m: int) -> dict:
+            """(n_keys, B) host array -> output-column dict for one block."""
+            d = dict(zip(keys, stacked))
+            blk = {
+                "beta": d["beta"][:m],
+                "se_beta": d["se_beta"][:m],
+                "tau": d["tau"][:m],
+                "lambda": d["lam"][:m],
+                "F_wald": d["F_wald"][:m],
+            }
+            if "lrt" in cfg.tests:
+                blk["lambda_ml"] = d["lambda_ml"][:m]
+                blk["logl_H1"] = d["logl_H1"][:m]
+                blk["D_lrt"] = 2.0 * (
+                    d["logl_H1"][:m].astype(np.float64) - null_ml
+                )
+            if "score" in cfg.tests:
+                blk["F_score"] = d["F_score"][:m]
+            return blk
+
+        # Results stay on the device until the scan has been dispatched (or
+        # go to a writer thread when run_dir durability is on), so no pull
+        # sits between blocks beyond the solver's own syncs.
+        pending = []  # (m, stacked device tensor) | ("blk", dict) | futures
+        writer = cf.ThreadPoolExecutor(max_workers=1) if ckpt else None
+
+        def _pull_save(start_, m_, stacked_):
+            blk = block_to_cols(stacked_.cpu().numpy(), m_)
+            ckpt.save_block(ph * p + start_, blk)
+            return blk
+
+        try:
+            with log.stage(f"association scan ({p} SNPs, n={n})"):
+                streamer = SnpBlockStreamer(X, B, dtype=X.dtype, device=dev)
+                for start, stop, xb_dev in log.track(
+                        streamer, "Testing SNPs...", total=-(-p // B)):
+                    m = stop - start
+                    if ckpt is not None and ckpt.has_block(ph * p + start):
+                        pending.append(("blk", ckpt.load_block(ph * p + start)))
+                        continue
+                    if U_dev is not None:
+                        xb_dev = rotate(U_dev, xb_dev)
+                    stacked = _assoc_block(ev_dev, W_dev, y_dev, xb_dev, cfg,
+                                           null_arr, de)
+                    if writer is not None:
+                        pending.append(writer.submit(_pull_save, start, m,
+                                                     stacked))
+                    else:
+                        pending.append((m, stacked))
+
+                for item in pending:
+                    if isinstance(item, tuple) and item[0] == "blk":
+                        blk = item[1]
+                    elif isinstance(item, tuple):
+                        blk = block_to_cols(item[1].cpu().numpy(), item[0])
+                    else:
+                        blk = item.result()  # writer future
+                    for k in cols:
+                        cols[k].append(blk[k])
+        finally:
+            if writer is not None:
+                writer.shutdown()
+
+        out = {k: np.concatenate(v) if v else np.array([]) for k, v in cols.items()}
+        _host_pvalues(out, n, c, cfg.tests)
+        df = pd.DataFrame(out)
+        # Column order parity with the reference (lmm/lmm.py:129-142).
+        order = ["beta", "se_beta", "tau", "lambda", "F_wald", "p_wald"]
+        order += [k for k in df.columns if k not in order]
+        df = df[order]
+        if n_pheno > 1:
+            df["pheno"] = ph
+        frames.append(df)
+
+    return frames

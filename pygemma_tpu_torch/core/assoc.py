@@ -1,0 +1,202 @@
+"""Per-block association testing: Wald / LRT / score, batched over SNPs.
+
+The replacement for the reference's per-SNP worker loop (``calculate`` /
+``calculate_de``, reference lmm/lmm.py:461-532): one function maps a block of
+rotated genotype columns to per-SNP statistics.  Per-SNP failure containment
+(the reference catches LinAlgError and emits a NaN row, lmm/lmm.py:484-493)
+falls out of the batched algebra plus the explicit NaN-row masks below.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from scipy import stats
+
+from ..config import GwasConfig, MIN_VAL
+from . import reml
+from .grams import (
+    grams_per_snp_lambda,
+    grams_per_snp_lambda_fused,
+    grams_shared_lambda,
+    pair_products,
+    permute_x_before_y,
+)
+from .solver import LambdaProblem, solve_lambda
+
+
+def _use_fused(cfg: GwasConfig, X: torch.Tensor) -> bool:
+    """Resolve the fused-kernel switch: auto means a float32 CUDA tensor."""
+    if cfg.use_fused_kernel is not None:
+        return cfg.use_fused_kernel
+    return X.is_cuda and X.dtype == torch.float32
+
+
+class NullFit(NamedTuple):
+    """Null-model (no SNP) quantities shared by a whole phenotype's scan."""
+
+    lambda_reml: torch.Tensor  # () REML lambda under y ~ W
+    lambda_ml: torch.Tensor  # () ML lambda under y ~ W
+    loglik_ml: torch.Tensor  # () ML log-likelihood at lambda_ml
+
+
+class AssocResult(NamedTuple):
+    beta: torch.Tensor
+    se_beta: torch.Tensor
+    tau: torch.Tensor
+    lam: torch.Tensor
+    F_wald: torch.Tensor
+    p_wald: Optional[torch.Tensor]
+    p_lrt: Optional[torch.Tensor]
+    p_score: Optional[torch.Tensor]
+    F_score: Optional[torch.Tensor]
+    lambda_ml: Optional[torch.Tensor]
+    logl_H1: Optional[torch.Tensor]
+
+
+def f_sf(F: torch.Tensor, dfd) -> torch.Tensor:
+    """Survival function of F(1, dfd), evaluated on the host in float64.
+
+    torch has no regularized incomplete beta, so this pulls F to the host
+    (a device sync) and calls scipy's ``stats.f.sf`` as the reference does
+    (lmm/lmm.py:482).  The result comes back in F's dtype and device.
+    """
+    Fh = np.maximum(F.detach().to("cpu", torch.float64).numpy(), 0.0)
+    return torch.as_tensor(stats.f.sf(Fh, 1, dfd)).to(F.device, F.dtype)
+
+
+def chi2_sf_1df(x: torch.Tensor) -> torch.Tensor:
+    """chi^2(1) survival function: p = Gamma_upper(1/2, x/2)/Gamma(1/2)."""
+    half = torch.full_like(x, 0.5)
+    return torch.special.gammaincc(half, torch.clamp_min(x, 0.0) / 2.0)
+
+
+def fit_null(ev, W, y, cfg: GwasConfig) -> NullFit:
+    """Fit the null model y ~ W once per phenotype (for score/LRT tests)."""
+    n, c = W.shape
+    pairs = pair_products(W)
+    v = y[:, None]
+    v2 = v * v
+    prob_reml = LambdaProblem(ev, W, pairs, v, v2, n, c, False, True)
+    lam_reml, _ = solve_lambda(prob_reml, cfg)
+    prob_ml = LambdaProblem(ev, W, pairs, v, v2, n, c, False, False)
+    lam_ml, logl_ml = solve_lambda(prob_ml, cfg)
+    return NullFit(lam_reml[0], lam_ml[0], logl_ml[0])
+
+
+def assoc_block(
+    ev: torch.Tensor,  # (n,) clamped kinship eigenvalues
+    W: torch.Tensor,  # (n, c) rotated covariates
+    y: torch.Tensor,  # (n,) rotated phenotype
+    X: torch.Tensor,  # (n, B) rotated genotype block
+    cfg: GwasConfig,
+    null: Optional[NullFit] = None,
+    de: bool = False,
+    pvalues: bool = True,
+) -> AssocResult:
+    """Run the LMM association tests for one SNP block.
+
+    Standard mode fits  y = W a + x b + u + e  per SNP x; DE mode
+    (reference lmm/lmm.py:498-532) swaps roles and fits  x = W a + y b + u + e.
+    ``pvalues=False`` leaves ``p_wald``/``p_score`` as None: the F survival
+    function runs on the host (:func:`f_sf`), and the driver computes the
+    table's p-values there once, after the scan, instead of waiting for the
+    card at every block.
+    """
+    n, c = W.shape
+    dtype = X.dtype
+    shared = torch.cat([W, y[:, None]], dim=1)  # (n, c+1): [W, y]
+    pairs = pair_products(shared)
+    X2 = X * X
+    fused = _use_fused(cfg, X)
+
+    # Lambda optimization with the full design.  Standard: design [W, x]
+    # (permuted Gram order [W, x, y]); DE: design [W, y], outcome x.
+    prob = LambdaProblem(ev, shared, pairs, X, X2, n, c + 1, not de, True,
+                         fused)
+    lam_star, _ = solve_lambda(prob, cfg)
+
+    # Final statistics at lambda*: one k=1 Gram build.
+    if fused:
+        grams, sums = grams_per_snp_lambda_fused(
+            lam_star, ev, shared, pairs, X, (1,), want_logh=False)
+    else:
+        grams, sums = grams_per_snp_lambda(
+            lam_star, ev, shared, pairs, X, X2, (1,), want_logh=False)
+    A1 = grams[0]
+    if not de:
+        A1 = permute_x_before_y(A1, c)
+    # Predictor-of-interest quadratic forms against the null design W
+    # (reference calc_beta_vg_ve_restricted_overload, pyx:1514-1537).
+    xPx, xPy, _ = reml.predictor_terms(A1, c)
+    alt = reml.reml_scalars(A1, None, None, sums, c + 1)
+    yPxy = torch.clamp_min(alt.yPy, MIN_VAL)
+
+    df = float(n - c - 1)
+    # Degenerate predictors (x collinear with W, e.g. a constant SNP) have
+    # x'P_c x == 0 up to roundoff.  The reference's contract for a singular
+    # design is a FULL NaN row (every column, lmm/lmm.py:484-493): gate
+    # every per-SNP output on the same mask.
+    x_ok = xPx > MIN_VAL
+    nan = float("nan")
+    beta = torch.where(x_ok, xPy / torch.clamp_min(xPx, MIN_VAL), nan)
+    se_beta = torch.where(
+        x_ok,
+        torch.sqrt(yPxy) / (torch.sqrt(torch.clamp_min(xPx, MIN_VAL))
+                            * math.sqrt(df)),
+        nan,
+    )
+    tau = torch.where(x_ok, df / yPxy, nan)
+    lam_star = torch.where(x_ok, lam_star, nan)
+    F_wald = torch.square(beta / se_beta)
+    p_wald = f_sf(F_wald, df) if pvalues else None
+
+    p_lrt = logl_H1 = lam_ml = None
+    if "lrt" in cfg.tests:
+        # GEMMA -lmm 2: ML lambda per SNP, D = 2(l1 - l0), chi^2(1).
+        if null is None:
+            raise ValueError("the LRT requires a null-model fit")
+        prob_ml = LambdaProblem(ev, shared, pairs, X, X2, n, c + 1, not de,
+                                False, fused)
+        lam_ml, logl_H1 = solve_lambda(prob_ml, cfg)
+        D = 2.0 * (logl_H1 - null.loglik_ml)
+        p_lrt = torch.where(x_ok, chi2_sf_1df(D), nan)
+        lam_ml = torch.where(x_ok, lam_ml, nan)
+        logl_H1 = torch.where(x_ok, logl_H1, nan)
+
+    p_score = F_score = None
+    if "score" in cfg.tests:
+        # GEMMA -lmm 3: score statistic at the null REML lambda.
+        if null is None:
+            raise ValueError("the score test requires a null-model fit")
+        grams0, _ = grams_shared_lambda(
+            null.lambda_reml.to(dtype), ev, shared, pairs, X, X2, (1,))
+        A1s = grams0[0]
+        if not de:
+            A1s = permute_x_before_y(A1s, c)
+        sxPx, sxPy, syPy = reml.predictor_terms(A1s, c)
+        # degenerate predictor -> NaN, not p = 0; also gated on the Wald
+        # x_ok mask (a FULL NaN row for a collinear SNP)
+        F_score = torch.where(
+            x_ok & (sxPx > MIN_VAL),
+            n * torch.square(sxPy) / torch.clamp_min(syPy * sxPx, MIN_VAL),
+            nan,
+        )
+        p_score = f_sf(F_score, df) if pvalues else None
+
+    return AssocResult(
+        beta=beta,
+        se_beta=se_beta,
+        tau=tau,
+        lam=lam_star,
+        F_wald=F_wald,
+        p_wald=p_wald,
+        p_lrt=p_lrt,
+        p_score=p_score,
+        F_score=F_score,
+        lambda_ml=lam_ml,
+        logl_H1=logl_H1,
+    )

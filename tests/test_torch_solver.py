@@ -1,0 +1,143 @@
+"""Port lambda solver (pygemma_tpu_torch.core.solver) against JAX solve_lambda."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import oracle
+from pygemma_tpu.config import GwasConfig as JCfg
+from pygemma_tpu.core import solver as js
+from pygemma_tpu.core.grams import pair_products as j_pairs
+from pygemma_tpu_torch.config import GwasConfig as TCfg
+from pygemma_tpu_torch.core import solver as ts
+from pygemma_tpu_torch.core.grams import pair_products as t_pairs
+
+torch.set_num_threads(2)
+
+TOL = {"float64": 1e-8, "float32": 3e-3}
+
+
+def _gwas_block():
+    y, G, W, K = oracle.simulate(n=160, p=16, c=2, seed=31)
+    ev, U = np.linalg.eigh(K)
+    X = U.T @ G
+    X[:, 5] = 0.0  # constant SNP after centering: no root, degenerate Gram
+    X[:, 9] = np.nan  # NaN lane
+    return np.maximum(ev, 0.0), np.c_[U.T @ W, U.T @ y], X, True, W.shape[1] + 1
+
+
+def _multiroot_block():
+    """Lanes with 2+ decade sign changes (test_solver_e2e's fixture): with
+    B = 12 lanes and >= 24 roots the compaction walks several batches."""
+    rng = np.random.default_rng(147)
+    n = int(rng.integers(8, 30))
+    ev = 10.0 ** rng.uniform(-5, 5, size=n)
+    W = np.ones((n, 1))
+    Y = np.random.default_rng(0).normal(size=(n, 512))
+    decades = [10.0 ** e for e in range(-5, 6)]
+    keep = []
+    for t in range(Y.shape[1]):
+        s = np.sign([oracle.d1_restricted(l, ev, Y[:, t], W) for l in decades])
+        if int(np.sum(s[:-1] * s[1:] < 0)) >= 2:
+            keep.append(t)
+        if len(keep) == 12:
+            break
+    return ev, W, Y[:, keep], False, 1
+
+
+@pytest.fixture(scope="module", params=["gwas", "multiroot"])
+def block(request):
+    return _gwas_block() if request.param == "gwas" else _multiroot_block()
+
+
+def _solve_both(block, dtype, restricted, **cfg):
+    ev, shared, v, permute, q = block
+    n = len(ev)
+    jcfg = JCfg(dtype=dtype, **cfg)
+
+    @jax.jit  # one compile instead of op-by-op dispatch of the whole solver
+    def jax_solve(ev_, sh_, v_):
+        prob = js.LambdaProblem(ev_, sh_, j_pairs(sh_), v_, v_ * v_, n, q,
+                                permute, restricted)
+        return js.solve_lambda(prob, jcfg)
+
+    tv = torch.as_tensor(v.astype(dtype))
+    tsh = torch.as_tensor(shared.astype(dtype))
+    tp = ts.LambdaProblem(torch.as_tensor(ev.astype(dtype)), tsh, t_pairs(tsh),
+                          tv, tv * tv, n, q, permute, restricted)
+    lj, llj = jax_solve(*(jnp.asarray(a.astype(dtype)) for a in (ev, shared, v)))
+    lt, llt = ts.solve_lambda(tp, TCfg(dtype=dtype, **cfg))
+    return (np.asarray(lj), np.asarray(llj)), (lt.numpy(), llt.numpy()), tp
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("mode", ["reml", "ml", "grid"])
+def test_lambda_and_loglik_match_jax(block, dtype, mode):
+    restricted = mode != "ml"
+    kw = {"grid": True} if mode == "grid" else {}
+    (lj, llj), (lt, llt), _ = _solve_both(block, dtype, restricted, **kw)
+    rtol = TOL[dtype]
+    np.testing.assert_allclose(lt, lj, rtol=rtol)
+    # ell* carries n*log(.) terms: compare relative to its own scale
+    np.testing.assert_allclose(llt, llj, rtol=rtol,
+                               atol=rtol * np.nanmax(np.abs(llj)))
+    # NaN / degenerate lanes agree lane for lane
+    np.testing.assert_array_equal(np.isnan(llt), np.isnan(llj))
+
+
+def test_fused_route_on_cpu_is_the_plain_version():
+    """fused=True on CPU tensors runs the kernel's plain version: the same
+    lambdas, bit for bit, and no kernel launch."""
+    from pygemma_tpu_torch.ops.gram_kernel import fused_grams
+
+    ev, shared, v, permute, q = _gwas_block()
+    tsh = torch.as_tensor(shared.astype(np.float32))
+    tv = torch.as_tensor(v.astype(np.float32))
+    args = (torch.as_tensor(ev.astype(np.float32)), tsh, t_pairs(tsh), tv,
+            tv * tv, len(ev), q, permute, True)
+    before = fused_grams.launches
+    a = ts.solve_lambda(ts.LambdaProblem(*args, fused=True), TCfg())
+    b = ts.solve_lambda(ts.LambdaProblem(*args, fused=False), TCfg())
+    assert fused_grams.launches == before
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def test_host_syncs_are_counted():
+    ev, shared, v, permute, q = _gwas_block()
+    tsh = torch.as_tensor(shared)
+    tv = torch.as_tensor(v)
+    prob = ts.LambdaProblem(torch.as_tensor(ev), tsh, t_pairs(tsh), tv,
+                            tv * tv, len(ev), q, permute, True)
+    cfg = TCfg(dtype="float64")
+    before = ts.host_value.count
+    ts.solve_lambda(prob, cfg)
+    # one batch count per solve + at most one early-exit test per Newton
+    # iteration of each batch
+    used = ts.host_value.count - before
+    assert 1 <= used <= 1 + cfg.newton_iters * (cfg.n_grid - 1)
+
+
+def test_nan_sign_product_matches_jnp_sign():
+    """Newton's three-way sign test: a NaN lane must NOT count as a bad
+    sign (jnp.sign(nan) is nan); it stops on the NaN guard instead."""
+    r = np.array([np.nan, 1.0, -2.0, 0.0, 3.0, np.nan])
+    a = np.array([1.0, np.nan, 2.0, 1.0, -1.0, np.nan])
+    b = np.array([2.0, 1.0, np.nan, 5.0, -3.0, 0.0])
+    want = np.asarray((jnp.sign(r) * jnp.sign(a) * jnp.sign(b)) <= 0)
+    tr_, ta, tb = map(torch.as_tensor, (r, a, b))
+    got = (ts._nan_sign(tr_) * ts._nan_sign(ta) * ts._nan_sign(tb)) <= 0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_decade_points_equal_jax_pow(dtype):
+    """The bracket endpoints are the values JAX's power gives (a one-ulp
+    difference flips out-of-bracket Newton stops in float32)."""
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    got = ts._decade_table(-5.0, 11, tdt, "cpu").numpy()
+    want = np.asarray(jnp.power(jnp.asarray(10.0, dtype),
+                                -5.0 + jnp.arange(11).astype(dtype)))
+    np.testing.assert_array_equal(got, want)
