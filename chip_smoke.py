@@ -11,7 +11,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the full-float32 matmul settings the scan requires;
 2. build: the hand-written kernel (``csrc/gram_kernel.cu``) with nvcc;
 3. kernel parity: ``fused_grams`` through the kernel against its plain
-   PyTorch version on the card at the main path's shapes, and times;
+   PyTorch version on the card at the main path's shapes;
 4. small end to end: the port's ``pygemma`` on the card in float32 against
    the float64 NumPy oracle (tests/oracle.py), and in float64 against the
    port on the CPU;
@@ -19,7 +19,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the kernel's launches and the solver's host syncs counted over the run,
    then the first block again with the kernel off, and a torch.profiler
    breakdown of four warm blocks (device busy time, time by kernel);
-6. one JSON line per kernel, and a last line
+6. kernel times at the main shape: the kernel's device time per call
+   (torch.profiler), its wall time per call and the plain version's wall
+   time.  They come after phase 5 because the profiler, once run, slows
+   every later launch from the host;
+7. one JSON line per kernel, and a last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is present.
@@ -59,8 +63,8 @@ def check(cond: bool, msg: str) -> None:
 def cuda_ms(fn, reps: int = 20) -> float:
     """Mean milliseconds per call on the card: CUDA events around ``reps``
     back-to-back calls, after a warm-up.  Where the host enqueues slower
-    than the card runs, this holds the host's gaps too; the profile phase
-    gives K1's device time per launch as a cross-check."""
+    than the card runs, this holds the host's gaps too: it is a wall time,
+    and :func:`device_ms` gives a kernel's own time."""
     import torch
 
     fn()
@@ -73,6 +77,34 @@ def cuda_ms(fn, reps: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, names, reps: int = 30) -> float:
+    """Device milliseconds per call: for each kernel whose name contains
+    one of ``names``, its mean device duration under torch.profiler over
+    ``reps`` calls after a warm-up, summed over the kernels.  Host gaps
+    between launches are not in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = 0.0
+    for name in names:
+        us = [e.time_range.elapsed_us() for e in dev if name in e.name]
+        # the profiler may drop events (seen: up to half of a window's);
+        # the mean over those it kept is still the time of one launch
+        check(len(us) >= 5,
+              f"profiler saw {len(us)} launches of {name} in {reps} calls")
+        total += sum(us) / len(us) / 1e3
+    return total
 
 
 def kernel_inputs(n, B, c, R, gen):
@@ -88,8 +120,49 @@ def kernel_inputs(n, B, c, R, gen):
     return (lam[:, 0] if R == 1 else lam), ev, pair_products(shared), shared, v
 
 
+def parity(gk, got, args, kmax, logh):
+    """``got``, a fused_grams result on ``args``, against float64.  The
+    rule: its error may exceed the float32 plain version's by
+    PARITY_RTOL * |ref| + PARITY_ATOL * max|ref|.  Returns (whether every
+    output meets it, max |got - plain float32|, max over the outputs of
+    max |got - float64| / max |float64|, the same for the plain
+    version)."""
+    import torch
+
+    plain = gk.fused_grams_reference(*args, kmax, logh)
+    ref64 = gk.fused_grams_reference(*args, kmax, logh, dtype=torch.float64)
+    ok, err, rel, rel_plain = True, 0.0, 0.0, 0.0
+    for g, p32, r in zip(got, plain, ref64):
+        r = r.double()
+        e_k = (g.double() - r).abs()
+        e_p = (p32.double() - r).abs()
+        scale = r.abs().max().item()
+        bad = e_k > e_p + PARITY_RTOL * r.abs() + PARITY_ATOL * scale
+        ok = ok and not bad.any().item()
+        err = max(err, (g - p32).abs().max().item())
+        if scale > 0:
+            rel = max(rel, e_k.max().item() / scale)
+            rel_plain = max(rel_plain, e_p.max().item() / scale)
+    return ok, err, rel, rel_plain
+
+
+def held_to_plain(gk, args, kmax, logh, label):
+    """One kernel call held to :func:`parity`'s rule; returns
+    max |kernel - plain float32|."""
+    import torch
+
+    got = gk.fused_grams(*args, kmax, logh)
+    torch.cuda.synchronize()
+    ok, err, rel, _ = parity(gk, got, args, kmax, logh)
+    check(ok, f"kernel disagrees at {label}: max |kernel-f64| / max|f64| "
+              f"{rel:.3e}")
+    print(f"parity {label} max|kernel-plain|={err:.3e}", flush=True)
+    return err
+
+
 def phase_kernel_parity(gk):
-    """Kernel vs plain version on the card; returns the K1 record."""
+    """Kernel vs plain version on the card; returns the largest
+    |kernel - plain float32|."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -98,43 +171,40 @@ def phase_kernel_parity(gk):
     cases += [(9_999, 2_000, 3, R, k, True) for R in (1, 2) for k in (1, 2, 3)]
     worst = 0.0
     for n, B, c, R, kmax, logh in cases:
-        args = kernel_inputs(n, B, c, R, gen)
-        got = gk.fused_grams(*args, kmax, logh)
-        torch.cuda.synchronize()
-        plain = gk.fused_grams_reference(*args, kmax, logh)
-        ref64 = gk.fused_grams_reference(*args, kmax, logh,
-                                         dtype=torch.float64)
-        err = 0.0
-        for g, p32, r in zip(got, plain, ref64):
-            r = r.double()
-            e_k = (g.double() - r).abs()
-            e_p = (p32.double() - r).abs()
-            scale = r.abs().max().item()
-            bad = e_k > e_p + PARITY_RTOL * r.abs() + PARITY_ATOL * scale
-            check(not bad.any().item(),
-                  f"kernel disagrees at n={n} B={B} c={c} R={R} kmax={kmax} "
-                  f"logh={logh}: max |kernel-f64| {e_k.max().item():.3e}")
-            err = max(err, (g - p32).abs().max().item())
-        worst = max(worst, err)
-        print(f"parity n={n} B={B} c={c} R={R} kmax={kmax} logh={int(logh)} "
-              f"max|kernel-plain|={err:.3e}", flush=True)
-    torch.cuda.synchronize()
+        label = f"n={n} B={B} c={c} R={R} kmax={kmax} logh={int(logh)}"
+        worst = max(worst, held_to_plain(gk, kernel_inputs(n, B, c, R, gen),
+                                         kmax, logh, label))
+    return worst
 
-    rows = {}
+
+def phase_kernel_times(gk):
+    """K1's times at the main shape, by kmax; the kmax 3 row is the
+    record's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
     s = C_FULL + 1
     m = s * (s + 1) // 2
     args = kernel_inputs(N_FULL, BLOCK, C_FULL, 1, gen)
+    rows = {}
     for kmax, logh in ((1, True), (2, False), (3, False), (1, False)):
-        ms = cuda_ms(lambda: gk.fused_grams(*args, kmax, logh))
+        call = lambda: gk.fused_grams(*args, kmax, logh)  # noqa: E731
+        ms = device_ms(call, gk.KERNEL_NAMES)
+        wall_ms = cuda_ms(call)
         plain_ms = cuda_ms(lambda: gk.fused_grams_reference(*args, kmax, logh))
-        flops, nbytes = gk.flops_and_bytes(N_FULL, BLOCK, 1, m, s, kmax, logh)
-        b_ms, b_by = gk.bound_ms(flops, nbytes)
+        fp32, tf32, nbytes = gk.tensor_core_work(N_FULL, BLOCK, 1, m, s, kmax,
+                                                 logh)
+        b_ms, b_by = gk.bound_ms(fp32, nbytes, tf32_flops=tf32)
+        b1_ms, b1_by = gk.bound_ms(*gk.flops_and_bytes(N_FULL, BLOCK, 1, m, s,
+                                                       kmax, logh))
         rows[f"kmax{kmax}{'_logh' if logh else ''}"] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_fp32_ms=b1_ms, bound_fp32_by=b1_by)
         print(f"time n={N_FULL} B={BLOCK} c={C_FULL} kmax={kmax} "
-              f"logh={int(logh)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-    return worst, rows
+              f"logh={int(logh)}: kernel {ms:.4f} ms device ({wall_ms:.4f} "
+              f"ms wall), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; FP32 pipes "
+              f"{b1_ms:.4f} ms, {b1_by})", flush=True)
+    return rows
 
 
 def table_close_dlogp(got, ref, col, limit):
@@ -279,14 +349,14 @@ def phase_full(pt, gk, solver):
     print(f"full: first block kernel on vs off max|dlog10 p|={d:.3e} "
           f"beta max rel {rel.max():.3e} (median {np.median(rel):.3e})",
           flush=True)
-    prof = profile_blocks(pt, y, X[:, :PROFILE_BLOCKS * BLOCK], W, K, cfg)
+    prof = profile_blocks(pt, gk, y, X[:, :PROFILE_BLOCKS * BLOCK], W, K, cfg)
     print(json.dumps({"profile": prof}), flush=True)
     return dict(launches=launches, host_syncs=syncs, eigh_s=eigh_s,
                 e2e_s=e2e_s, scan_s=scan_s, snps_per_s=P_FULL / scan_s,
                 peak_gib=peak / 2**30, finite_p=finite)
 
 
-def profile_blocks(pt, y, X, W, K, cfg):
+def profile_blocks(pt, gk, y, X, W, K, cfg):
     """Where a warm scan's time goes: the wall time of the slice unprofiled,
     then the card's busy time (union of its kernel and copy intervals) and
     device time by kernel name under torch.profiler.  The idle share is
@@ -323,8 +393,9 @@ def profile_blocks(pt, y, X, W, K, cfg):
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    k1_us = sum(t for name, t in by_name.items() if "gram_" in name)
-    k1_launches = sum("gram_partials" in e.name for e in dev)
+    k1_us = sum(t for name, t in by_name.items()
+                if any(k in name for k in gk.KERNEL_NAMES))
+    k1_launches = sum(gk.KERNEL_NAMES[0] in e.name for e in dev)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     blocks = X.shape[1] // BLOCK
     return dict(blocks=blocks, wall_ms=wall_us / 1e3,
@@ -364,8 +435,8 @@ def main() -> int:
     print(f"build: {gk.SOURCE.relative_to(ROOT)} in {time.time() - t0:.1f} s",
           flush=True)
 
-    # 3. kernel parity and times
-    worst, rows = phase_kernel_parity(gk)
+    # 3. kernel parity
+    worst = phase_kernel_parity(gk)
 
     # 4. small end to end
     phase_small(pt, oracle)
@@ -373,10 +444,13 @@ def main() -> int:
     # 5. full width
     full = phase_full(pt, gk, solver)
 
-    # 6. records
+    # 6. kernel times
+    rows = phase_kernel_times(gk)
+
+    # 7. records
     main_row = rows["kmax3"]
     record = {"kernels": [{
-        "name": "fused_grams (gram_partials_kernel + gram_reduce_kernel)",
+        "name": "fused_grams (k1_partials_kernel + k1_reduce_kernel)",
         "route": "cuda",
         "source": "pygemma_tpu_torch/csrc/gram_kernel.cu",
         "replaces": "pygemma_tpu/ops/gram_kernel.py:87",
@@ -387,6 +461,9 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "wall_ms": main_row["wall_ms"],
+        "bound_fp32_ms": main_row["bound_fp32_ms"],
+        "bound_fp32_by": main_row["bound_fp32_by"],
         "shape": f"n={N_FULL} B={BLOCK} c={C_FULL} R=1 kmax=3",
         "by_kmax": rows,
     }]}

@@ -4,8 +4,9 @@ The per-SNP-lambda evaluation (bisection/Newton refinement,
 :func:`pygemma_tpu_torch.core.grams.grams_per_snp_lambda`) materializes
 (n, B) weight matrices d^k = (lam_b*Lambda_i + 1)^-k in device memory as
 matmul operands for k = 1, 2, 3.  ``csrc/gram_kernel.cu`` computes the same
-sums with d^k kept in registers, and evaluates R lambda values per SNP (the
-solver's root slots) in the same launch.  It replaces the Pallas TPU kernel
+sums with d^k kept in registers and the sums over samples on the tensor
+cores in 3xTF32, and evaluates R lambda values per SNP (the solver's root
+slots) in the same launch.  It replaces the Pallas TPU kernel
 ``pygemma_tpu/ops/gram_kernel.py::_kernel``; the source says what bounds it
 on the card and how its design answers that.
 
@@ -44,8 +45,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: each sample-axis split covers at least this many samples
 _MIN_SPAN = 256
-#: aim for this many resident blocks per SM when splitting the sample axis
-_BLOCKS_PER_SM = 4
+#: ... and at most this many: the tensor cores' accumulation into a
+#: split's sums loses about half an ulp of the sum per addition, so their
+#: error grows with the split's length (on the card, 2e-5 of the largest
+#: sum at 2,048 samples; k1_ablation.py)
+_MAX_SPAN = 1024
+#: device kernels of one fused_grams call, as a profiler names them
+KERNEL_NAMES = ("k1_partials_kernel", "k1_reduce_kernel")
 
 _lib = None
 
@@ -61,11 +67,14 @@ def _nvcc() -> str:
                        f"{SOURCE.name}")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/gram_kernel.cu`` (once per source content) and return
-    the shared library's path."""
+def build(verbose: bool = False, defines: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/gram_kernel.cu`` (once per source content and flags)
+    and return the shared library's path.  ``defines`` are macros passed
+    with ``-D``: the measurement switches the source lists, which the
+    wrapper's own library never sets."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     src = SOURCE.read_bytes()
-    tag = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(),
+    tag = hashlib.blake2b(src + " ".join(flags).encode(),
                           digest_size=8).hexdigest()
     lib_path = BUILD_DIR / f"libgram_kernel_{tag}.so"
     if lib_path.exists():
@@ -73,7 +82,7 @@ def build(verbose: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *flags, "-o", tmp, str(SOURCE)]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -86,22 +95,34 @@ def build(verbose: bool = False) -> Path:
     return lib_path
 
 
-def _load():
-    """Build (if needed) and bind the kernel library once per process."""
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C interface.  Its
+    ``geometry`` is the source's launch layout: (columns per block,
+    [pairs | 1] features per block, shared features per block, samples per
+    pipeline stage)."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gram_fused_launch.argtypes = [p, p, p, p, p, p, p] + [i] * 9 + [p]
+    lib.gram_fused_launch.restype = i
+    lib.gram_blocks_per_sm.argtypes = [i]
+    lib.gram_blocks_per_sm.restype = i
+    geometry = []
+    for name in ("gram_columns_per_block", "gram_base_features_per_block",
+                 "gram_shared_features_per_block", "gram_sample_tile"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+        geometry.append(getattr(lib, name)())
+    lib.geometry = tuple(geometry)
+    lib.blocks_per_sm = {}  # kmax -> resident blocks per SM
+    return lib
+
+
+def _load() -> ctypes.CDLL:
+    """Build (if needed) and bind the wrapper's kernel library once per
+    process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gram_fused_launch.argtypes = [p, p, p, p, p, p, p] + [i] * 9 + [p]
-        lib.gram_fused_launch.restype = i
-        geometry = []
-        for name in ("gram_threads_per_block", "gram_features_per_chunk",
-                     "gram_sample_tile"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-            geometry.append(getattr(lib, name)())
-        lib.geometry = tuple(geometry)
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
@@ -110,44 +131,74 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _blocks_per_sm(lib: ctypes.CDLL, kmax: int) -> int:
+    if kmax not in lib.blocks_per_sm:
+        nb = lib.gram_blocks_per_sm(kmax)
+        if nb <= 0:
+            raise RuntimeError(f"gram kernel occupancy query failed: {nb}")
+        lib.blocks_per_sm[kmax] = nb
+    return lib.blocks_per_sm[kmax]
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def launch_plan(n: int, B: int, R: int, m: int, s: int, kmax: int,
-                sm_count: int, tpb: int = 128, fc: int = 16,
-                tile: int = 64) -> Tuple[int, int, int]:
-    """(nsplit, span, rows): how the sample axis is split over blocks.
+def feature_blocks(m: int, s: int, base_per_block: int,
+                   shared_per_block: int) -> int:
+    """Blocks over the features: block z holds [pairs | 1] features
+    [base_per_block z, base_per_block (z + 1)) and shared features
+    [shared_per_block z, shared_per_block (z + 1)), zero-padded."""
+    return max(_cdiv(m + 1, base_per_block), _cdiv(s, shared_per_block))
 
-    The (SNP, slot) columns give ceil(B*R / tpb) blocks, times one per
-    feature chunk; the sample axis is split until the grid holds about
-    ``_BLOCKS_PER_SM`` blocks per SM, with at least ``_MIN_SPAN`` samples
-    (a whole number of tiles) per split."""
-    F = m + s + 2
-    rows = kmax * F + 1
-    col_blocks = _cdiv(B * R, tpb) * _cdiv(F, fc)
-    want = _cdiv(_BLOCKS_PER_SM * sm_count, col_blocks)
-    nsplit = max(1, min(want, _cdiv(n, _MIN_SPAN)))
+
+def launch_plan(n: int, B: int, R: int, m: int, s: int, kmax: int,
+                sm_count: int, blocks_per_sm: int,
+                geometry: Tuple[int, int, int, int]) -> Tuple[int, int, int]:
+    """(nsplit, span, rows): how the sample axis is split over blocks, for
+    a library's ``geometry`` (see :func:`bind`).
+
+    The (SNP, slot) columns give ceil(B*R / columns per block) blocks,
+    times the feature blocks; the sample axis is split into as many parts
+    as still fit the card in one wave of resident blocks, with at least
+    ``_MIN_SPAN`` samples (a whole number of stages) per split, and into
+    more when a split would exceed ``_MAX_SPAN``."""
+    cols, base_per_block, shared_per_block, tile = geometry
+    rows = kmax * (m + s + 2) + 1
+    col_blocks = (_cdiv(B * R, cols)
+                  * feature_blocks(m, s, base_per_block, shared_per_block))
+    fit = blocks_per_sm * sm_count // col_blocks
+    nsplit = max(1, min(fit, _cdiv(n, _MIN_SPAN)), _cdiv(n, _MAX_SPAN))
     span = _cdiv(_cdiv(n, nsplit), tile) * tile
     return _cdiv(n, span), span, rows
 
 
-def _fused_grams_cuda(lam, ev, pairs, shared, v, kmax, want_logh):
-    """Launch K1 on CUDA float32 inputs; returns the (rows, B, R) sums."""
-    lib = _load()
+def launch(lib: ctypes.CDLL, lam, ev, pairs, shared, v, kmax: int,
+           want_logh: bool, span: int = None):
+    """Launch the kernel of ``lib`` on contiguous CUDA float32 inputs
+    (``lam`` is (B, R)) and return the (rows, B, R) sums.  ``span`` sets
+    the samples per split in place of :func:`launch_plan`'s (a whole
+    number of stages; k1_ablation.py uses it to see how the rounding of
+    the sums depends on the split's length)."""
     B, R = lam.shape
     n, m = pairs.shape
     s = shared.shape[1]
     dev = v.device
-    nsplit, span, rows = launch_plan(n, B, R, m, s, kmax,
-                                     _sm_count(dev.index), *lib.geometry)
+    nsplit, plan_span, rows = launch_plan(
+        n, B, R, m, s, kmax, _sm_count(dev.index), _blocks_per_sm(lib, kmax),
+        lib.geometry)
+    if span is not None:
+        if span <= 0 or span % lib.geometry[3]:
+            raise ValueError(f"span must be a positive multiple of "
+                             f"{lib.geometry[3]}, got {span}")
+        nsplit, plan_span = _cdiv(n, span), span
     part = torch.empty((nsplit, rows, B * R), dtype=torch.float32, device=dev)
     out = torch.empty((rows, B, R), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.gram_fused_launch(
         lam.data_ptr(), ev.data_ptr(), pairs.data_ptr(), shared.data_ptr(),
         v.data_ptr(), part.data_ptr(), out.data_ptr(),
-        n, B, R, m, s, kmax, int(want_logh), nsplit, span, stream)
+        n, B, R, m, s, kmax, int(want_logh), nsplit, plan_span, stream)
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
     fused_grams.launches += 1
@@ -231,10 +282,9 @@ def fused_grams(
     lam2 = lam[:, None] if squeeze else lam
     if lam2.shape[0] != B:
         raise ValueError(f"lam has {lam2.shape[0]} rows for {B} SNP columns")
-    f32 = torch.float32
-    out = _fused_grams_cuda(
-        *(t.to(f32).contiguous() for t in (lam2, ev, pairs, shared, v)),
-        kmax, want_logh)
+    args = (t.to(torch.float32).contiguous()
+            for t in (lam2, ev, pairs, shared, v))
+    out = launch(_load(), *args, kmax, want_logh)
     res = _split_rows(out, pairs.shape[1], s, kmax, want_logh)
     if squeeze:
         return tuple(t.squeeze(1) for t in res)
@@ -262,10 +312,30 @@ def flops_and_bytes(n: int, B: int, R: int, m: int, s: int, kmax: int,
     return flops, 4.0 * (in_vals + out_vals)
 
 
+def tensor_core_work(n: int, B: int, R: int, m: int, s: int, kmax: int,
+                     want_logh: bool) -> Tuple[float, float, float]:
+    """The same work as the tensor-core design does it: (FP32-pipe
+    operations, TF32 tensor-core operations, bytes).
+
+    The products with the m+1 pair features and the s shared features are
+    three TF32 passes each (2 * 3 * kmax * (m+s+1) per (sample, column)).
+    The rest stays on the FP32 pipes: h (2), d (1), the powers (kmax-1),
+    v*v (1), per k d^k*v (1) and the vv multiply-add (2); log h and its sum
+    (2) when wanted."""
+    per = 2 + 1 + (kmax - 1) + 1 + 3 * kmax + (2 if want_logh else 0)
+    cols = float(n) * B * R
+    tf32 = 2.0 * 3 * kmax * (m + s + 1) * cols
+    return per * cols, tf32, flops_and_bytes(n, B, R, m, s, kmax,
+                                             want_logh)[1]
+
+
 def bound_ms(flops: float, nbytes: float, peak_flops: float = 67e12,
-             peak_bytes: float = 3.35e12) -> Tuple[float, str]:
-    """Least time (ms) the card could take, and which resource sets it
-    (H100 SXM data-sheet peaks: FP32 without tensor cores, HBM3)."""
-    t_ops = flops / peak_flops * 1e3
+             peak_bytes: float = 3.35e12, tf32_flops: float = 0.0,
+             peak_tf32: float = 495e12) -> Tuple[float, str]:
+    """Least time (ms) the card could take, and which resource sets it:
+    the largest of the FP32-pipe operations, the TF32 tensor-core
+    operations and the bytes over their H100 SXM data-sheet peaks (FP32
+    without tensor cores, dense TF32, HBM3)."""
+    t_ops = max(flops / peak_flops, tf32_flops / peak_tf32) * 1e3
     t_bytes = nbytes / peak_bytes * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")

@@ -43,23 +43,21 @@ def data():
     return y, G, W, K
 
 
-def _kernel_inputs(n, B, c, R, device):
+def _kernel_inputs(n, B, c, R, device, lam_pows=(-4, 4)):
     rng = np.random.default_rng(n * 1000 + B)
     ev = np.abs(rng.normal(size=n)).astype(np.float32)
+    ev[:20] *= 1e3  # a few large eigenvalues, as a kinship spectrum has
     shared = rng.normal(size=(n, c + 1)).astype(np.float32)
     X = rng.normal(size=(n, B)).astype(np.float32)
     size = B if R == 1 else (B, R)
-    lam = np.power(10.0, rng.uniform(-4, 4, size=size)).astype(np.float32)
+    lam = np.power(10.0, rng.uniform(*lam_pows, size=size)).astype(np.float32)
     sh = torch.as_tensor(shared, device=device)
     return (torch.as_tensor(lam, device=device),
             torch.as_tensor(ev, device=device), pair_products(sh), sh,
             torch.as_tensor(X, device=device))
 
 
-@pytest.mark.parametrize("c,R,kmax,want_logh", [
-    (3, 1, 3, False), (3, 1, 1, True), (10, 2, 2, True), (1, 1, 3, True)])
-def test_kernel_matches_plain(cuda, c, R, kmax, want_logh):
-    args = _kernel_inputs(4099, 300, c, R, cuda)
+def _check_against_plain(args, kmax, want_logh):
     before = gk.fused_grams.launches
     got = gk.fused_grams(*args, kmax, want_logh)
     torch.cuda.synchronize()
@@ -71,6 +69,40 @@ def test_kernel_matches_plain(cuda, c, R, kmax, want_logh):
         # float32 sums in another order: the plain version's own rounding
         np.testing.assert_allclose(a.cpu().numpy(), b, rtol=1e-4,
                                    atol=1e-4 * max(np.abs(b).max(), 1e-30))
+
+
+@pytest.mark.parametrize("c,R,kmax,want_logh", [
+    (3, 1, 3, False), (3, 1, 1, True), (10, 2, 2, True), (1, 1, 3, True)])
+def test_kernel_matches_plain(cuda, c, R, kmax, want_logh):
+    # n = 4,099 is no whole number of 32-sample stages, B = 300 no whole
+    # number of 128-column blocks (and not a multiple of 4: 4-byte copies)
+    _check_against_plain(_kernel_inputs(4099, 300, c, R, cuda), kmax,
+                         want_logh)
+
+
+@pytest.mark.parametrize("n,B,c,R,kmax", [
+    (4099, 17, 3, 1, 3), (4099, 17, 3, 3, 2), (4096, 256, 3, 1, 3),
+    (4099, 300, 10, 2, 3)])
+def test_kernel_ragged_and_wide(cuda, n, B, c, R, kmax):
+    """Ragged columns (B = 17; R = 3 leaves the 16-byte copy path), whole
+    tiles with 16-byte copies, and c = 10 with R = 2 at kmax 3: 11 feature
+    tiles split over three blocks."""
+    _check_against_plain(_kernel_inputs(n, B, c, R, cuda), kmax, True)
+
+
+@pytest.mark.parametrize("pow_", [-5, 5])
+def test_kernel_extreme_lambda(cuda, pow_):
+    _check_against_plain(
+        _kernel_inputs(4099, 300, 3, 1, cuda, lam_pows=(pow_, pow_)), 3, True)
+
+
+def test_kernel_launches_are_bit_identical(cuda):
+    args = _kernel_inputs(10_000, 2048, 3, 1, cuda)
+    for kmax in (1, 3):
+        a = gk.fused_grams(*args, kmax, True)
+        b = gk.fused_grams(*args, kmax, True)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 def test_streamer_blocks_match_the_host(cuda):

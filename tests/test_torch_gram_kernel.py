@@ -4,8 +4,11 @@ On the CPU the wrapper runs the plain PyTorch version; it is held here to
 the JAX package's Pallas kernel (interpret mode, as tests/test_pallas_kernel.py
 runs it).  The CUDA kernel itself runs only on the card
 (tests/test_torch_cuda.py); its launch geometry and row layout are held
-here by a NumPy emulation of the kernel's partial-sum / reduce scheme.
+here by a NumPy emulation of the kernel's partial-sum / reduce scheme, and
+its 3xTF32 arithmetic by a NumPy emulation of the tensor-core products.
 """
+
+import re
 
 import numpy as np
 import jax.numpy as jnp
@@ -18,6 +21,23 @@ from pygemma_tpu_torch.core.grams import pair_products
 from pygemma_tpu_torch.ops import gram_kernel as gk
 
 torch.set_num_threads(2)
+
+
+def _kernel_constants():
+    """The launch layout csrc/gram_kernel.cu defines, read from its source
+    (nvcc is not needed to know it): gram_kernel.bind's ``geometry`` and
+    the resident blocks per SM its launch bounds ask for, which the card's
+    occupancy query gives for the kernel's ~80 KB of shared memory."""
+    src = gk.SOURCE.read_text()
+    val = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+           for k in ("COLS", "NBASE", "NSH", "TS")}
+    blocks = int(re.search(r"__launch_bounds__\(THREADS, (\d+)\)",
+                           src).group(1))
+    return (val["COLS"], val["NBASE"], val["NSH"], val["TS"]), blocks
+
+
+GEOMETRY, BLOCKS_PER_SM = _kernel_constants()
+_, NBASE, NSH, TS = GEOMETRY
 
 
 def _data(n, B, c, R=None, seed=None):
@@ -99,32 +119,58 @@ def test_wrapper_refuses_other_devices():
         _torch_fused(ev, shared, X, lam, 4, False)
 
 
+def _out_feature(z, f, m, s):
+    """csrc/gram_kernel.cu::out_feature: slot f of feature block z -> row
+    of the [pairs | 1 | shared | vv] output layout, or -1 for padding."""
+    if f < NBASE:
+        return NBASE * z + f if NBASE * z + f <= m else -1
+    j = NSH * z + f - NBASE
+    return m + 1 + j if j < s else -1
+
+
 def _emulate_kernel(lam, ev, pairs, shared, v, kmax, want_logh, sm=132):
-    """NumPy model of csrc/gram_kernel.cu: feature layout, sample splits and
-    feature chunks from launch_plan, partial rows, fixed-order reduce.
-    Returns the (rows, B, R) array the wrapper's _split_rows reads."""
+    """NumPy model of csrc/gram_kernel.cu: feature block z holds slots
+    [pairs | 1] NBASE z .. NBASE (z + 1) - 1 (weight d^k) and shared
+    NSH z .. NSH (z + 1) - 1 (weight d^k v), zero-padded; sample splits from launch_plan; partial
+    rows, each written exactly once; fixed-order reduce.  Returns the
+    (rows, B, R) array the wrapper's _split_rows reads."""
     n, B = v.shape
     R = lam.shape[1]
     m, s = pairs.shape[1], shared.shape[1]
     F = m + s + 2
-    nsplit, span, rows = gk.launch_plan(n, B, R, m, s, kmax, sm)
-    base = np.concatenate([pairs, np.ones((n, 1)), shared, np.ones((n, 1))],
-                          axis=1)  # (n, F)
-    kind = np.array([0] * (m + 1) + [1] * s + [2])
-    part = np.zeros((nsplit, rows, B, R))
+    nsplit, span, rows = gk.launch_plan(n, B, R, m, s, kmax, sm,
+                                        BLOCKS_PER_SM, GEOMETRY)
+    base = np.c_[pairs, np.ones((n, 1))]
+    lamc = lam.reshape(-1)  # column b * R + r
+    x = v[:, np.arange(B * R) // R]
+    part = np.zeros((nsplit, rows, B * R))
+    writes = np.zeros((nsplit, rows), dtype=int)
     for sp in range(nsplit):
         sl = slice(sp * span, min(n, (sp + 1) * span))
-        h = lam[None, :, :] * ev[sl, None, None] + 1.0  # (ns, B, R)
+        h = lamc[None, :] * ev[sl, None] + 1.0  # (ns, B*R)
         d = 1.0 / h
-        x = v[sl][:, :, None]
-        mult = np.stack([np.ones_like(x), x, x * x])  # (3, ns, B, 1)
-        for k in range(kmax):
-            for f in range(F):
-                t = base[sl, f][:, None, None] * mult[kind[f]]
-                part[sp, k * F + f] = np.sum(d ** (k + 1) * t, axis=0)
-        if want_logh:
-            part[sp, kmax * F] = np.sum(np.log(h), axis=0)
-    return part.sum(axis=0)
+        for z in range(gk.feature_blocks(m, s, NBASE, NSH)):
+            for k in range(kmax):
+                for f in range(NBASE + NSH):
+                    row = _out_feature(z, f, m, s)
+                    if row < 0:
+                        continue
+                    if f < NBASE:
+                        w, feat = d ** (k + 1), base[sl, NBASE * z + f]
+                    else:
+                        w = d ** (k + 1) * x[sl]
+                        feat = shared[sl, NSH * z + f - NBASE]
+                    part[sp, k * F + row] = (w * feat[:, None]).sum(0)
+                    writes[sp, k * F + row] += 1
+            if z == 0:
+                for k in range(kmax):
+                    part[sp, k * F + F - 1] = (d ** (k + 1) * x[sl] ** 2
+                                               ).sum(0)
+                    writes[sp, k * F + F - 1] += 1
+                part[sp, kmax * F] = (np.log(h).sum(0) if want_logh else 0.0)
+                writes[sp, kmax * F] += 1
+    assert (writes == 1).all()
+    return part.sum(axis=0).reshape(rows, B, R)
 
 
 @pytest.mark.parametrize("n,B,c,R,kmax,want_logh", [
@@ -152,18 +198,49 @@ def test_kernel_layout_matches_reference(n, B, c, R, kmax, want_logh):
 
 
 def test_launch_plan_fills_the_card():
-    # main-path shape: 2,048 columns = 16 blocks; the sample axis is split
-    # so the grid holds ~4 blocks per SM, each split a whole number of tiles
-    nsplit, span, rows = gk.launch_plan(10000, 2048, 1, 10, 4, 3, 132)
+    # main-path shape: 2,048 columns = 16 blocks of 128, and c = 3 (11
+    # [pairs | 1] and 4 shared features) is one feature block; the sample
+    # axis is split into as many parts as still fit one wave of 2 blocks
+    # per SM, whole tiles each
+    def plan(n, B, R, m, s, kmax):
+        return gk.launch_plan(n, B, R, m, s, kmax, 132, BLOCKS_PER_SM,
+                              GEOMETRY)
+
+    assert gk.feature_blocks(10, 4, NBASE, NSH) == 1
+    nsplit, span, rows = plan(10000, 2048, 1, 10, 4, 3)
     assert rows == 3 * 16 + 1
-    assert span % 64 == 0 and span >= 256
+    assert span % TS == 0 and span >= 256
     assert nsplit * span >= 10000 > (nsplit - 1) * span
-    assert nsplit * 16 >= 3 * 132  # rounding to whole tiles costs a few
-    # tiny problems never split below one tile of samples
-    assert gk.launch_plan(70, 10, 1, 1, 2, 1, 132)[0] == 1
+    assert nsplit == 16 and 16 * nsplit <= 2 * 132 < 16 * (nsplit + 1)
+    # c = 10, R = 2: 67 [pairs | 1] features take 5 feature blocks, and
+    # 32 x 5 column blocks fill the card without a split, but no split may
+    # be longer than _MAX_SPAN samples
+    assert gk.feature_blocks(66, 11, NBASE, NSH) == 5
+    assert plan(10000, 2048, 2, 66, 11, 3)[:2] == (10, 1024)
+    # c = 1, R = 2: 32 x 1 column blocks, 8 splits, then the cap
+    assert plan(10000, 2048, 2, 3, 2, 3)[0] == 10
+    assert plan(6000, 2048, 2, 3, 2, 3)[0] == 8
+    # more column blocks than one wave holds: only the cap splits; tiny
+    # problems never split below _MIN_SPAN samples
+    assert plan(10000, 50000, 1, 10, 4, 3)[0] == 10
+    assert plan(1000, 50000, 1, 10, 4, 3)[0] == 1
+    assert plan(70, 10, 1, 1, 2, 1)[0] == 1
+    for n in (70, 1000, 9999, 10000, 20000):
+        nsplit, span, _ = plan(n, 2048, 2, 66, 11, 3)
+        assert span <= gk._MAX_SPAN and nsplit * span >= n
 
 
 def test_bound_at_main_path_shape():
+    # the tensor-core design: 82.9 MB of genotypes at 3.35 TB/s bound it
+    # at every kmax; ~5.5 GFLOP of 3xTF32 products at 495 TFLOP/s and
+    # ~0.3 GFLOP on the FP32 pipes stay below
+    for kmax in (1, 2, 3):
+        fp32, tf32, nbytes = gk.tensor_core_work(10000, 2048, 1, 10, 4, kmax,
+                                                 kmax == 1)
+        ms, by = gk.bound_ms(fp32, nbytes, tf32_flops=tf32)
+        assert by == "bytes" and 0.0245 < ms < 0.025
+    assert 5e9 < tf32 < 6e9 and fp32 < 0.4e9
+    # the FP32-pipe yardstick: every product on the FP32 pipes
     flops, nbytes = gk.flops_and_bytes(10000, 2048, 1, 10, 4, 3, False)
     ms, by = gk.bound_ms(flops, nbytes)
     assert by == "operations"
@@ -171,3 +248,98 @@ def test_bound_at_main_path_shape():
     ms1, by1 = gk.bound_ms(*gk.flops_and_bytes(10000, 2048, 1, 10, 4, 1,
                                                False))
     assert by1 == "bytes" and ms1 < ms
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32: add half a TF32 ulp to the bits, clear the low 13."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor core reads of a float32 operand: its top 19 bits."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _to_f32_toward_zero(x):
+    """float64 -> float32, rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tensor_core_sums(A, Bf, span, passes):
+    """sum_i A[i, col] * Bf[i, f] as the kernel's wgmma sequence runs it:
+    per 8-sample step, one instruction per TF32 operand pair in ``passes``
+    (in that order) adds its 8 products (exact, as the tensor core forms
+    them) to the float32 accumulator, rounding toward zero: the
+    accumulation k1_ablation.py measured on the card, whose error grows
+    with the split's length.  Step after step within a split of ``span``
+    samples; the splits are then added in order in float32."""
+    a_hi, b_hi = _tf32_rna(A), _tf32_rna(Bf)
+    ops = {"hh": (a_hi, b_hi),
+           "hl": (a_hi, _tf32_trunc(Bf - b_hi)),
+           "lh": (_tf32_trunc(A - a_hi), b_hi)}
+    n = A.shape[0]
+    per = span // 8
+    steps = -(-n // span) * per
+    pad = steps * 8 - n
+    P = []
+    for p in passes:
+        a, b = (np.pad(t.astype(np.float64), ((0, pad), (0, 0)))
+                for t in ops[p])
+        P.append(np.einsum("tic,tif->tcf", a.reshape(steps, 8, -1),
+                           b.reshape(steps, 8, -1))
+                 .reshape((steps // per, per) + (A.shape[1], Bf.shape[1])))
+    acc = np.zeros(P[0].shape[:1] + P[0].shape[2:], np.float32)  # per split
+    for t in range(per):
+        for Pp in P:
+            acc = _to_f32_toward_zero(acc.astype(np.float64) + Pp[:, t])
+    total = np.zeros(acc.shape[1:], np.float32)
+    for part in acc:
+        total += part
+    return total
+
+
+def test_3xtf32_meets_the_parity_rule_and_1xtf32_does_not():
+    """chip_smoke.py's parity rule (error <= the plain float32 error +
+    1e-4 |ref| + 1e-4 max|ref|, against float64) at n = 10,000 with lambda
+    over 1e-5..1e5 and a spectrum with large eigenvalues, in splits as
+    long as the launch plan allows: the emulated 3xTF32 products meet it,
+    a single TF32 pass does not."""
+    rng = np.random.default_rng(11)
+    n, cols, c = 10_000, 48, 3
+    ev = np.concatenate([rng.gamma(0.5, 1.0, n - 50),
+                         10.0 ** rng.uniform(2, 4, 50)]).astype(np.float32)
+    shared = rng.normal(size=(n, c + 1)).astype(np.float32)
+    X = rng.normal(size=(n, cols)).astype(np.float32)
+    lam = np.logspace(-5, 5, cols).astype(np.float32)
+    pairs = pair_products(torch.as_tensor(shared)).numpy()
+    m, s = pairs.shape[1], shared.shape[1]
+    base = np.c_[pairs, np.ones((n, 1), np.float32)]
+    span = gk._MAX_SPAN
+
+    # the kernel's float32 weights: h and 1/h rounded as the kernel does
+    d32 = np.float32(1.0) / (lam[None, :] * ev[:, None] + np.float32(1.0))
+    d64 = 1.0 / (lam[None, :].astype(np.float64) * ev[:, None] + 1.0)
+    ok3, bad1 = True, False
+    dk32, dk64 = d32, d64
+    for k in range(3):
+        if k:
+            dk32, dk64 = dk32 * d32, dk64 * d64
+        for A32, A64, Bf in ((dk32, dk64, base),
+                             (dk32 * X, dk64 * X, shared)):
+            ref = A64.T @ Bf.astype(np.float64)  # (cols, features)
+            plain = (A32.T @ Bf).astype(np.float64)  # float32 GEMM
+            allow = (np.abs(plain - ref) + 1e-4 * np.abs(ref)
+                     + 1e-4 * np.abs(ref).max())
+            # the kernel's order: a_lo b_hi, a_hi b_lo, a_hi b_hi
+            e3 = np.abs(_tensor_core_sums(A32, Bf, span, ("lh", "hl", "hh"))
+                        - ref)
+            e1 = np.abs(_tensor_core_sums(A32, Bf, span, ("hh",)) - ref)
+            ok3 &= bool((e3 <= allow).all())
+            bad1 |= bool((e1 > allow).any())
+    assert ok3
+    assert bad1

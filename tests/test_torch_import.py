@@ -67,7 +67,8 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
     for p in list((ROOT / "pygemma_tpu_torch").rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "k1_ablation.py",
+       ROOT / "tests" / "test_torch_cuda.py"]))
 def test_source_imports_no_jax(path):
     bad = [m for m in _imports(ROOT / path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
