@@ -15,15 +15,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. small end to end: the port's ``pygemma`` on the card in float32 against
    the float64 NumPy oracle (tests/oracle.py), and in float64 against the
    port on the CPU;
-5. full width: n = 10,000 samples, p = 50,000 SNPs, c = 3, REML Wald, with
-   the kernel's launches and the solver's host syncs counted over the run,
-   then the first block again with the kernel off, and a torch.profiler
-   breakdown of four warm blocks (device busy time, time by kernel);
-6. kernel times at the main shape: the kernel's device time per call
+5. the large-GWAS path (``bench.py``'s large configuration): a 2-bit
+   cohort of n = 20,000 samples x p = 100,000 SNPs drawn on the card and
+   written to a temporary directory (~500 MB), streamed through
+   ``PackedMatrix.open_rawbin`` with K the GRM of its first 16,384 SNPs
+   plus 1e-3 I as an implicit ``LowRankKinship``, blocks of 8,192 SNPs,
+   ``run_dir`` checkpointing: the top basis timed alone, the scan cold and
+   warm with the kernel's launches and host syncs counted, checks on the
+   first block (device dequant against the host slice, float32 input,
+   kernel off, the explicit full basis), the device block cache with and
+   without the prefill thread, and a PLINK .bed slice against the same
+   codes in the dosage coding;
+6. full width, dense K: n = 10,000 samples, p = 50,000 SNPs, c = 3, REML
+   Wald, with the kernel's launches and the solver's host syncs counted
+   over the run, then the first block again with the kernel off, and a
+   torch.profiler breakdown of four warm blocks (device busy time, time by
+   kernel);
+7. kernel times at both paths' shapes: the kernel's device time per call
    (torch.profiler), its wall time per call and the plain version's wall
-   time.  They come after phase 5 because the profiler, once run, slows
-   every later launch from the host;
-7. one JSON line per kernel, and a last line
+   time.  Phases 5 and 6 time their scans before any profiler runs,
+   because the profiler, once run, slows every later launch from the host;
+8. one JSON line per kernel, and a last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is present.
@@ -32,8 +44,10 @@ It exits non-zero without printing a result when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,6 +56,15 @@ ROOT = Path(__file__).resolve().parent
 # main-path shape of the kernel: one SNP block of the full-width run
 N_FULL, P_FULL, C_FULL, BLOCK = 10_000, 50_000, 3, 2_048
 PROFILE_BLOCKS = 4  # warm blocks traced by torch.profiler
+PROFILE_BLOCKS_LARGE = 2  # ... on the large-GWAS path
+# the large-GWAS path (bench.py:9-18, :210-252): 2-bit cohort, implicit
+# low-rank kinship of the first PK_LARGE SNPs, blocks of BLOCK_LARGE
+N_LARGE, P_LARGE, C_LARGE = 20_000, 100_000, 3
+PK_LARGE, BLOCK_LARGE, EPS_LARGE = 16_384, 8_192, 1e-3
+BED_SNPS = 2_048  # the .bed coding check's slice
+# implicit vs explicit basis: tests/test_lowrank.py's tolerances
+LOWRANK_DLOGP, LOWRANK_BETA_RTOL, LOWRANK_BETA_ATOL = 0.05, 2e-3, 1e-5
+LOWRANK_LAM_RTOL = 5e-3
 PARITY_RTOL = PARITY_ATOL = 1e-4  # beyond the float32 plain version's error
 SMALL_DLOGP = 0.05  # the JAX package's float32 contract vs the oracle
 CARD_CPU_RTOL = 1e-6  # float64 card vs float64 CPU
@@ -169,6 +192,11 @@ def phase_kernel_parity(gk):
     cases = [(N_FULL, BLOCK, c, R, k, lh) for c in (1, 3, 10) for R in (1, 2)
              for k in (1, 2, 3) for lh in (False, True)]
     cases += [(9_999, 2_000, 3, R, k, True) for R in (1, 2) for k in (1, 2, 3)]
+    # the implicit path's shape: p_k rows (and a ragged p_k), blocks of
+    # 8,192; log h only with the likelihood's kmax 1, as the solver asks
+    cases += [(n, BLOCK_LARGE, C_LARGE, R, k, k == 1)
+              for n in (PK_LARGE, PK_LARGE - 3) for R in (1, 2)
+              for k in (1, 2, 3)]
     worst = 0.0
     for n, B, c, R, kmax, logh in cases:
         label = f"n={n} B={B} c={c} R={R} kmax={kmax} logh={int(logh)}"
@@ -177,34 +205,39 @@ def phase_kernel_parity(gk):
     return worst
 
 
+def kernel_time_row(gk, n, B, c, kmax, logh, gen):
+    """K1's device, wall and plain times and bounds at one shape (R = 1)."""
+    s = c + 1
+    m = s * (s + 1) // 2
+    args = kernel_inputs(n, B, c, 1, gen)
+    call = lambda: gk.fused_grams(*args, kmax, logh)  # noqa: E731
+    ms = device_ms(call, gk.KERNEL_NAMES)
+    wall_ms = cuda_ms(call)
+    plain_ms = cuda_ms(lambda: gk.fused_grams_reference(*args, kmax, logh))
+    fp32, tf32, nbytes = gk.tensor_core_work(n, B, 1, m, s, kmax, logh)
+    b_ms, b_by = gk.bound_ms(fp32, nbytes, tf32_flops=tf32)
+    b1_ms, b1_by = gk.bound_ms(*gk.flops_and_bytes(n, B, 1, m, s, kmax,
+                                                   logh))
+    print(f"time n={n} B={B} c={c} kmax={kmax} logh={int(logh)}: kernel "
+          f"{ms:.4f} ms device ({wall_ms:.4f} ms wall), plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}; FP32 pipes {b1_ms:.4f} ms, "
+          f"{b1_by})", flush=True)
+    return dict(ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_fp32_ms=b1_ms, bound_fp32_by=b1_by)
+
+
 def phase_kernel_times(gk):
-    """K1's times at the main shape, by kmax; the kmax 3 row is the
-    record's."""
+    """K1's times at the dense path's shape by kmax (the kmax 3 row is the
+    record's), and at the implicit path's shape at kmax 3."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    s = C_FULL + 1
-    m = s * (s + 1) // 2
-    args = kernel_inputs(N_FULL, BLOCK, C_FULL, 1, gen)
-    rows = {}
-    for kmax, logh in ((1, True), (2, False), (3, False), (1, False)):
-        call = lambda: gk.fused_grams(*args, kmax, logh)  # noqa: E731
-        ms = device_ms(call, gk.KERNEL_NAMES)
-        wall_ms = cuda_ms(call)
-        plain_ms = cuda_ms(lambda: gk.fused_grams_reference(*args, kmax, logh))
-        fp32, tf32, nbytes = gk.tensor_core_work(N_FULL, BLOCK, 1, m, s, kmax,
-                                                 logh)
-        b_ms, b_by = gk.bound_ms(fp32, nbytes, tf32_flops=tf32)
-        b1_ms, b1_by = gk.bound_ms(*gk.flops_and_bytes(N_FULL, BLOCK, 1, m, s,
-                                                       kmax, logh))
-        rows[f"kmax{kmax}{'_logh' if logh else ''}"] = dict(
-            ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            bound_fp32_ms=b1_ms, bound_fp32_by=b1_by)
-        print(f"time n={N_FULL} B={BLOCK} c={C_FULL} kmax={kmax} "
-              f"logh={int(logh)}: kernel {ms:.4f} ms device ({wall_ms:.4f} "
-              f"ms wall), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; FP32 pipes "
-              f"{b1_ms:.4f} ms, {b1_by})", flush=True)
-    return rows
+    rows = {f"kmax{kmax}{'_logh' if logh else ''}":
+            kernel_time_row(gk, N_FULL, BLOCK, C_FULL, kmax, logh, gen)
+            for kmax, logh in ((1, True), (2, False), (3, False), (1, False))}
+    implicit = kernel_time_row(gk, PK_LARGE, BLOCK_LARGE, C_LARGE, 3, False,
+                               gen)
+    return rows, implicit
 
 
 def table_close_dlogp(got, ref, col, limit):
@@ -289,6 +322,296 @@ def make_full_width(seed: int = 2026):
     return out
 
 
+def pack_on_card(codes):
+    """(n, b) uint8 codes on the card -> (ceil(n/4), b) packed bytes, in
+    ``io.packed.pack_codes``'s bit order."""
+    import torch
+
+    pad = (-codes.shape[0]) % 4
+    if pad:
+        codes = torch.cat([codes, codes.new_zeros((pad, codes.shape[1]))])
+    c = codes.reshape(-1, 4, codes.shape[1])
+    return c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+
+
+def make_large_cohort(tmp: str, seed: int = 2027):
+    """bench.py's large cohort (bench.py:75-84, :244-246), drawn on the
+    card: binomial(2, 0.3) codes, packed there and written with
+    ``write_rawbin_2bit``; per-SNP mean/sd sidecar; W = [1, N(0,1),
+    N(0,1)].  Returns (prefix, W)."""
+    import numpy as np
+    import torch
+
+    from pygemma_tpu_torch.io.packed import pack_codes, write_rawbin_2bit
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, p = N_LARGE, P_LARGE
+    packed_pn = np.empty((p, (n + 3) // 4), np.uint8)
+    mu = np.empty(p, np.float32)
+    sd = np.empty(p, np.float32)
+    for s in range(0, p, BLOCK_LARGE):
+        b = min(BLOCK_LARGE, p - s)
+        codes = sum((torch.rand(n, b, device=dev, generator=g) < 0.3).to(
+            torch.uint8) for _ in range(2))
+        xf = codes.float()
+        mu[s:s + b] = xf.mean(0).cpu().numpy()
+        sd[s:s + b] = torch.clamp_min(xf.std(0, correction=0),
+                                      1e-6).cpu().numpy()
+        packed = pack_on_card(codes)
+        if s == 0:
+            check(np.array_equal(packed[:, :64].cpu().numpy(),
+                                 pack_codes(codes[:, :64].cpu().numpy())),
+                  "packing on the card disagrees with pack_codes")
+        packed_pn[s:s + b] = packed.T.cpu().numpy()
+    prefix = os.path.join(tmp, "cohort")
+    write_rawbin_2bit(prefix, packed_pn, mu, sd, n=n)
+    W = torch.ones(n, C_LARGE, device=dev)
+    W[:, 1:] = torch.randn(n, C_LARGE - 1, device=dev, generator=g)
+    return prefix, W.cpu().numpy()
+
+
+def large_inputs(tmp: str):
+    """The large-GWAS path's inputs (bench.py:240-252), the cohort written
+    under ``tmp``: (prefix, X, y, W, K, config), with y = 2 mean(X[:, :64])
+    + N(0, 1) and K the GRM of the first PK_LARGE SNPs + EPS_LARGE I."""
+    import numpy as np
+
+    import pygemma_tpu_torch as pt
+    from pygemma_tpu_torch.core.lowrank import LowRankKinship
+    from pygemma_tpu_torch.io.packed import PackedMatrix
+
+    prefix, W = make_large_cohort(tmp)
+    X = PackedMatrix.open_rawbin(prefix)
+    rng = np.random.default_rng(1)
+    y = (2.0 * X[:, :64].mean(1) + rng.standard_normal(N_LARGE)).astype(
+        np.float32)
+    lrk = LowRankKinship(X.cols(0, PK_LARGE), eps=EPS_LARGE)
+    return prefix, X, y, W, lrk, pt.GwasConfig(snp_block=BLOCK_LARGE)
+
+
+def tables_equal(a, b, what):
+    import numpy as np
+
+    check(list(a.columns) == list(b.columns)
+          and np.array_equal(a.to_numpy(), b.to_numpy(), equal_nan=True),
+          f"{what}: the tables differ")
+
+
+def lowrank_close(got, ref, what):
+    """tests/test_lowrank.py's rule: |d log10 p| < 0.05, beta rtol 2e-3
+    atol 1e-5, lambda rtol 5e-3, NaN rows equal."""
+    import numpy as np
+
+    d = table_close_dlogp(got, ref, "p_wald", LOWRANK_DLOGP)
+    ok = ~np.isnan(ref["beta"].to_numpy())
+    for col, rtol, atol in (("beta", LOWRANK_BETA_RTOL, LOWRANK_BETA_ATOL),
+                            ("lambda", LOWRANK_LAM_RTOL, 0.0)):
+        a, b = got[col].to_numpy()[ok], ref[col].to_numpy()[ok]
+        bad = np.abs(a - b) > atol + rtol * np.abs(b)
+        check(not bad.any(), f"{what} {col}: {int(bad.sum())} values off")
+    return d
+
+
+def held_to_float64(on, off, f64, cols):
+    """The kernel-on table against the kernel-off table, both held to a
+    float64 scan of the same block: per SNP, |on - f64| may exceed the plain
+    float32 version's largest |off - f64| by OFF_BETA_RTOL * |f64|.
+    Returns col -> (max |on - f64|, max |off - f64|, their median relative
+    errors)."""
+    import numpy as np
+
+    out = {}
+    for col in cols:
+        a, b, r = (t[col].to_numpy() for t in (on, off, f64))
+        ok = ~np.isnan(r)
+        check(np.array_equal(np.isnan(a), np.isnan(r))
+              and np.array_equal(np.isnan(b), np.isnan(r)),
+              f"{col}: NaN rows differ from float64")
+        e_on, e_off = np.abs(a[ok] - r[ok]), np.abs(b[ok] - r[ok])
+        bad = e_on > e_off.max() + OFF_BETA_RTOL * np.abs(r[ok])
+        check(not bad.any(), f"{col} kernel on: {int(bad.sum())} values "
+                             "beyond the plain version's error")
+        rel = np.abs(r[ok])
+        out[col] = (float(e_on.max()), float(e_off.max()),
+                    float(np.median(e_on / rel)),
+                    float(np.median(e_off / rel)))
+    return out
+
+
+def phase_large(pt, gk, solver, tmp):
+    """The large-GWAS path on the card, its cohort written under ``tmp``;
+    returns its record and the (y, X, W, K, cfg) a later profile reuses."""
+    import numpy as np
+    import torch
+
+    from pygemma_tpu_torch import api
+    from pygemma_tpu_torch.core.lowrank import GRAM_BLOCK, lowrank_top_basis
+    from pygemma_tpu_torch.io import streaming
+    from pygemma_tpu_torch.io.packed import PackedMatrix, unpack_codes
+    from pygemma_tpu_torch.io.plink import write_bed
+
+    t0 = time.time()
+    prefix, X, y, W, lrk, cfg = large_inputs(tmp)
+    n_blocks = -(-P_LARGE // BLOCK_LARGE)
+    block_bytes = streaming.SnpBlockStreamer(X, BLOCK_LARGE).block_bytes
+    file_mb = os.path.getsize(prefix + ".2b") / 2**20
+    print(f"large: cohort n={N_LARGE} p={P_LARGE} drawn on the card and "
+          f"written ({file_mb:.0f} MiB) in {time.time() - t0:.1f} s",
+          flush=True)
+
+    # the top basis alone, by stage
+    torch.cuda.synchronize()
+    stages = {}
+    t0 = time.time()
+    basis = lowrank_top_basis(lrk, timings=stages)
+    torch.cuda.synchronize()
+    top_s = time.time() - t0
+    check(bool(torch.isfinite(basis.U_top).all()), "top basis not finite")
+    del basis
+    torch.cuda.empty_cache()
+
+    # cold: the basis and the scan in one driver call (the path's run)
+    api._EIGEN_DEV_CACHE.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gk.fused_grams.launches = 0
+    solver.host_value.count = 0
+    t0 = time.time()
+    df = pt.pygemma(y, X, W, lrk, config=cfg,
+                    run_dir=os.path.join(tmp, "cold"))
+    e2e_s = time.time() - t0
+    launches = gk.fused_grams.launches
+    syncs = solver.host_value.count
+    peak = torch.cuda.max_memory_allocated()
+    check(launches > 0, "the kernel was never launched on the implicit "
+                        "path")
+    check(len(df) == P_LARGE, "wrong number of table rows")
+    finite = float(np.isfinite(df["p_wald"].to_numpy()).mean())
+    check(finite > 0.99, f"only {finite:.4f} of p_wald is finite")
+
+    # warm: the basis from the device cache, a fresh run_dir
+    t0 = time.time()
+    df2 = pt.pygemma(y, X, W, lrk, config=cfg,
+                     run_dir=os.path.join(tmp, "warm"))
+    scan_s = time.time() - t0
+    tables_equal(df2, df, "warm against cold")
+    by_stage = ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+    print(f"large: top basis {top_s:.2f} s ({by_stage}), "
+          f"end-to-end {e2e_s:.2f} s, warm scan {scan_s:.2f} s = "
+          f"{P_LARGE / scan_s:.0f} SNPs/s; kernel launches {launches} "
+          f"({launches / n_blocks:.1f} per block of {BLOCK_LARGE}); host "
+          f"syncs {syncs}; peak device memory {peak / 2**30:.2f} GiB; "
+          f"packed bytes per block {block_bytes}; finite p_wald "
+          f"{finite:.4f}", flush=True)
+
+    # (c) the first block: the device dequant against the host slice,
+    # and the float32 ndarray input against the packed input
+    first = X.cols(0, BLOCK_LARGE)
+    (_, _, xb), = streaming.SnpBlockStreamer(first, BLOCK_LARGE,
+                                             device="cuda")
+    Xf = X[:, :BLOCK_LARGE]
+    check(np.array_equal(xb.cpu().numpy(), Xf),
+          "device dequant differs from the host slice")
+    head = df.iloc[:BLOCK_LARGE].reset_index(drop=True)
+    tables_equal(pt.pygemma(y, Xf, W, lrk, config=cfg), head,
+                 "float32 input against packed input")
+    del xb, Xf
+    print("large: first block dequant bit-identical to the host slice; "
+          "float32 input gives the identical table", flush=True)
+
+    # (d) the device block cache, filled by the scan, then served.  A
+    # basis computed while the cache is on streams (and caches) the
+    # kinship's SNP columns too, as blocks of its own view
+    kin_block = min(GRAM_BLOCK, PK_LARGE)
+    kin_blocks = -(-PK_LARGE // kin_block)
+    kin_bytes = kin_blocks * streaming.SnpBlockStreamer(
+        lrk.G, kin_block).block_bytes
+    os.environ["PYGEMMA_TPU_GENO_DEV_CACHE_MB"] = str(
+        (n_blocks * block_bytes + kin_bytes) // 2**20 + 64)
+    cache = streaming._DEV_BLOCK_CACHE
+    try:
+        streaming.clear_device_block_cache()
+        fill = pt.pygemma(y, X, W, lrk, config=cfg)
+        check(len(cache) == n_blocks,
+              f"the cache holds {len(cache)} blocks, not {n_blocks}")
+        t0 = time.time()
+        hit = pt.pygemma(y, X, W, lrk, config=cfg)
+        cached_s = time.time() - t0
+        tables_equal(fill, df, "cache fill")
+        tables_equal(hit, df, "cache hit")
+        # the prefill thread racing the basis and the scan
+        streaming.clear_device_block_cache()
+        api._EIGEN_DEV_CACHE.clear()
+        os.environ["PYGEMMA_TPU_PREFETCH_OVERLAP"] = "1"
+        t0 = time.time()
+        pipe = pt.pygemma(y, X, W, lrk, config=cfg)
+        pipelined_s = time.time() - t0
+        tables_equal(pipe, df, "prefill overlap")
+        check(len(cache) == n_blocks + kin_blocks
+              and cache.nbytes == cache.entry_bytes()
+              == n_blocks * block_bytes + kin_bytes,
+              f"cache after the prefill race: {len(cache)} blocks, "
+              f"{cache.nbytes} counted, {cache.entry_bytes()} held")
+    finally:
+        os.environ.pop("PYGEMMA_TPU_GENO_DEV_CACHE_MB", None)
+        os.environ.pop("PYGEMMA_TPU_PREFETCH_OVERLAP", None)
+        streaming.clear_device_block_cache()
+    print(f"large: cached scan {cached_s:.2f} s = {P_LARGE / cached_s:.0f} "
+          f"SNPs/s ({n_blocks} blocks on the card, table identical); "
+          f"prefill overlap end-to-end {pipelined_s:.2f} s (table "
+          f"identical, byte count = entries)", flush=True)
+
+    # (e) PLINK .bed coding: the same codes in both codings
+    codes = unpack_codes(np.asarray(X.data[:, :BED_SNPS]), N_LARGE)
+    write_bed(os.path.join(tmp, "slice"), codes.astype(np.float32))
+    bed = PackedMatrix.open_bed(os.path.join(tmp, "slice"))
+    dose = PackedMatrix.from_codes(np.ascontiguousarray(codes))
+    check(np.array_equal(bed.mu, dose.mu) and np.array_equal(bed.sd, dose.sd),
+          ".bed column statistics differ from the dosage coding's")
+    for (start, stop, a), (_, _, b) in zip(
+            streaming.SnpBlockStreamer(bed, 1024, device="cuda"),
+            streaming.SnpBlockStreamer(dose, 1024, device="cuda")):
+        m = stop - start  # padding columns decode per coding
+        check(torch.equal(a[:, :m], b[:, :m]),
+              ".bed blocks differ from the dosage coding's")
+    print(f"large: .bed coding of {N_LARGE} x {BED_SNPS} streams "
+          "bit-identical to the dosage coding", flush=True)
+
+    # kernel off on the first block, both against the same block in
+    # float64; then the explicit full basis
+    off = pt.pygemma(y, first, W, lrk,
+                     config=cfg.replace(use_fused_kernel=False))
+    f64 = pt.pygemma(y, X[:, :BLOCK_LARGE].astype(np.float64), W, lrk,
+                     config=cfg.replace(dtype="float64"))
+    d_off = table_close_dlogp(off, head, "p_wald", OFF_DLOGP)
+    errs = held_to_float64(head, off, f64, ("beta", "lambda"))
+    print("large: first block kernel on vs off max|dlog10 p|="
+          f"{d_off:.3e}; against float64: " + "; ".join(
+              f"{col} max abs on {on_e:.3e} off {off_e:.3e}, median rel "
+              f"on {on_m:.3e} off {off_m:.3e}"
+              for col, (on_e, off_e, on_m, off_m) in errs.items()),
+          flush=True)
+    t0 = time.time()
+    exp = pt.pygemma(y, first, W, lrk,
+                     config=cfg.replace(lowrank_implicit=False))
+    explicit_s = time.time() - t0
+    d_exp = lowrank_close(exp, head, "explicit against implicit")
+    print(f"large: explicit n x n basis ({explicit_s:.1f} s) against "
+          f"implicit max|dlog10 p|={d_exp:.3e}", flush=True)
+    api._EIGEN_DEV_CACHE.clear()
+    torch.cuda.empty_cache()
+    record = dict(launches=launches, host_syncs=syncs, top_basis_s=top_s,
+                  top_basis_stages=stages, e2e_s=e2e_s, scan_s=scan_s,
+                  snps_per_s=P_LARGE / scan_s, cached_scan_s=cached_s,
+                  pipelined_e2e_s=pipelined_s,
+                  explicit_first_block_s=explicit_s, peak_gib=peak / 2**30,
+                  packed_bytes_per_block=block_bytes, finite_p=finite,
+                  on_off_dlogp=d_off, on_off_vs_float64=errs,
+                  explicit_implicit_dlogp=d_exp)
+    return record, (y, X.cols(0, PROFILE_BLOCKS_LARGE * BLOCK_LARGE), W, lrk,
+                    cfg)
+
+
 def phase_full(pt, gk, solver):
     import numpy as np
     import torch
@@ -349,14 +672,15 @@ def phase_full(pt, gk, solver):
     print(f"full: first block kernel on vs off max|dlog10 p|={d:.3e} "
           f"beta max rel {rel.max():.3e} (median {np.median(rel):.3e})",
           flush=True)
-    prof = profile_blocks(pt, gk, y, X[:, :PROFILE_BLOCKS * BLOCK], W, K, cfg)
+    prof = profile_blocks(pt, gk, y, X[:, :PROFILE_BLOCKS * BLOCK], W, K, cfg,
+                          BLOCK)
     print(json.dumps({"profile": prof}), flush=True)
     return dict(launches=launches, host_syncs=syncs, eigh_s=eigh_s,
                 e2e_s=e2e_s, scan_s=scan_s, snps_per_s=P_FULL / scan_s,
                 peak_gib=peak / 2**30, finite_p=finite)
 
 
-def profile_blocks(pt, gk, y, X, W, K, cfg):
+def profile_blocks(pt, gk, y, X, W, K, cfg, block):
     """Where a warm scan's time goes: the wall time of the slice unprofiled,
     then the card's busy time (union of its kernel and copy intervals) and
     device time by kernel name under torch.profiler.  The idle share is
@@ -397,7 +721,7 @@ def profile_blocks(pt, gk, y, X, W, K, cfg):
                 if any(k in name for k in gk.KERNEL_NAMES))
     k1_launches = sum(gk.KERNEL_NAMES[0] in e.name for e in dev)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    blocks = X.shape[1] // BLOCK
+    blocks = X.shape[1] // block
     return dict(blocks=blocks, wall_ms=wall_us / 1e3,
                 device_busy_ms=busy / 1e3, idle_share=1.0 - busy / wall_us,
                 device_ops_per_block=len(dev) / blocks,
@@ -416,8 +740,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "tests"))
     import oracle  # numpy/scipy float64 reference, tests/oracle.py
     import pygemma_tpu_torch as pt
-    from pygemma_tpu_torch import api
     from pygemma_tpu_torch.core import solver
+    from pygemma_tpu_torch.device import check_matmul_precision
     from pygemma_tpu_torch.ops import gram_kernel as gk
 
     # 1. environment
@@ -425,7 +749,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     print(card, flush=True)
-    api._check_matmul_precision()
+    check_matmul_precision()
     print("matmul: allow_tf32=False, float32 precision 'highest'", flush=True)
 
     # 2. build
@@ -441,20 +765,36 @@ def main() -> int:
     # 4. small end to end
     phase_small(pt, oracle)
 
-    # 5. full width
-    full = phase_full(pt, gk, solver)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # 5. the large-GWAS path (implicit low-rank kinship, 2-bit cohort)
+        large, large_inputs = phase_large(pt, gk, solver, tmp)
 
-    # 6. kernel times
-    rows = phase_kernel_times(gk)
+        # 6. full width, dense K (its profile comes after every timed scan)
+        full = phase_full(pt, gk, solver)
 
-    # 7. records
+        # where the large path's warm blocks spend their time
+        y, X, W, lrk, cfg = large_inputs
+        large["profile"] = profile_blocks(pt, gk, y, X, W, lrk, cfg,
+                                          BLOCK_LARGE)
+        print(json.dumps({"profile_large": large["profile"]}), flush=True)
+        pt.api._EIGEN_DEV_CACHE.clear()
+        del large_inputs, y, X, W, lrk
+
+    # 7. kernel times
+    rows, implicit_row = phase_kernel_times(gk)
+
+    # 8. records
     main_row = rows["kmax3"]
     record = {"kernels": [{
         "name": "fused_grams (k1_partials_kernel + k1_reduce_kernel)",
         "route": "cuda",
         "source": "pygemma_tpu_torch/csrc/gram_kernel.cu",
         "replaces": "pygemma_tpu/ops/gram_kernel.py:87",
-        "launches": full["launches"],
+        "launches": full["launches"] + large["launches"],
+        "launches_by_path": {
+            f"dense n={N_FULL} p={P_FULL}": full["launches"],
+            f"implicit n={N_LARGE} p={P_LARGE} p_k={PK_LARGE}":
+                large["launches"]},
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -466,7 +806,11 @@ def main() -> int:
         "bound_fp32_by": main_row["bound_fp32_by"],
         "shape": f"n={N_FULL} B={BLOCK} c={C_FULL} R=1 kmax=3",
         "by_kmax": rows,
+        "implicit_shape": dict(
+            implicit_row,
+            shape=f"n={PK_LARGE} B={BLOCK_LARGE} c={C_LARGE} R=1 kmax=3"),
     }]}
+    print(json.dumps({"large_implicit": large}), flush=True)
     print(json.dumps({"full_width": full}), flush=True)
     print(card, flush=True)
     print(json.dumps(record), flush=True)

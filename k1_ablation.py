@@ -19,10 +19,16 @@ large eigenvalues with lambda over 1e-5..1e5.  ``approx_rcp``'s verdict is
 printed, not held.  The other entries are timings whose sums are wrong by
 design.
 
-Last, the kernel's error against float64 at several lengths of the
+Then the kernel's error against float64 at several lengths of the
 sample-axis split.  The sums of one split are one chain of tensor-core
 accumulations, so an error that grows with the split's length is the
 accumulation's.
+
+Last, the same split lengths end to end: the first block of chip_smoke.py's
+large-GWAS path (implicit low-rank kinship, p_k = 16,384 rows, blocks of
+8,192) scanned with the plan's split capped at each length, its lambda and
+beta against a float64 scan of the block beside the plain version's, and
+the kernel's device time at that shape.  Reported, not held.
 
 Prints one line per entry and kmax, one per parity verdict and one per
 split length, and the card's name and power limit.  Exits non-zero when a
@@ -49,6 +55,7 @@ ABLATIONS = {
     "fp32_products": ("K1_ABLATE_FP32_PRODUCTS", True),
 }
 SPANS = (32, 128, 512, 2048)  # samples per split, beside the plan's own
+CAPS = (1024, 512, 256, 128)  # split caps of the end-to-end sweep
 
 
 def run(gk, lib, args, kmax, logh, span=None):
@@ -79,6 +86,52 @@ def parity_inputs(cs, gen):
         "c=10 R=2": (cs.kernel_inputs(cs.N_FULL, cs.BLOCK, 10, 2, gen), 3),
         "large ev, lam 1e-5..1e5": ((lam, ev, pairs, shared, v), 3),
     }
+
+
+def lowrank_split_sweep(cs, gk):
+    """Lambda's and beta's error on the implicit path's first block, and
+    K1's device time there, with the plan's split capped at each of CAPS."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import pygemma_tpu_torch as pt
+
+    def errors(t, ref):
+        out = []
+        for col in ("lambda", "beta"):
+            a, r = t[col].to_numpy(), ref[col].to_numpy()
+            ok = ~np.isnan(r)
+            e = np.abs(a[ok] - r[ok])
+            out.append(f"{col} max abs {e.max():.3e} median rel "
+                       f"{np.median(e / np.abs(r[ok])):.3e}")
+        return "; ".join(out)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args = cs.kernel_inputs(cs.PK_LARGE, cs.BLOCK_LARGE, cs.C_LARGE, 1, gen)
+    with tempfile.TemporaryDirectory(prefix="k1_ablation_") as tmp:
+        _, X, y, W, lrk, cfg = cs.large_inputs(tmp)
+        first = X.cols(0, cs.BLOCK_LARGE)
+        ref = pt.pygemma(y, X[:, :cs.BLOCK_LARGE].astype(np.float64), W, lrk,
+                         config=cfg.replace(dtype="float64"))
+        off = pt.pygemma(y, first, W, lrk,
+                         config=cfg.replace(use_fused_kernel=False))
+        print(f"implicit first block, plain float32 vs float64: "
+              f"{errors(off, ref)}", flush=True)
+        plan_cap = gk._MAX_SPAN
+        try:
+            for cap in CAPS:
+                gk._MAX_SPAN = cap
+                on = pt.pygemma(y, first, W, lrk, config=cfg)
+                ms = cs.device_ms(lambda: gk.fused_grams(*args, 3, False),
+                                  gk.KERNEL_NAMES)
+                print(f"implicit first block, split cap {cap}: kernel vs "
+                      f"float64 {errors(on, ref)}; K1 n={cs.PK_LARGE} "
+                      f"B={cs.BLOCK_LARGE} kmax=3 {ms:.4f} ms device",
+                      flush=True)
+        finally:
+            gk._MAX_SPAN = plan_cap
 
 
 def main() -> int:
@@ -136,6 +189,8 @@ def main() -> int:
                 print(f"span {span or 'plan'} {name} [{label}]: "
                       f"max|got-f64|/max|f64| {rel:.3e} (plain float32 "
                       f"{rel_plain:.3e})", flush=True)
+
+    lowrank_split_sweep(cs, gk)
 
     for msg in wrong:
         print(f"k1_ablation FAILED: {msg}", flush=True)

@@ -8,17 +8,24 @@ Output schema: ``beta, se_beta, tau, lambda, F_wald, p_wald`` (+ ``SNPs``
 when snp names are given; reference lmm/lmm.py:403-411), extended with
 ``p_lrt`` / ``p_score`` / ``logl_H1`` when those tests are requested.
 
-This package covers the main path: a dense kinship (or precomputed
-eigenvalues with ``eigen=False``), genotypes in memory, phenotypes scanned
-one column at a time.  Low-rank kinships, quantized or 2-bit genotypes,
-device meshes and the divide-and-conquer eigh raise ``NotImplementedError``.
+Genotypes come as a float array or streamed as 2-bit or int8 codes
+(:class:`~pygemma_tpu_torch.io.packed.PackedMatrix`,
+:class:`~pygemma_tpu_torch.io.quantized.QuantizedMatrix`) that dequantize
+on the device.  The kinship is dense (or precomputed eigenvalues with
+``eigen=False``) or a :class:`~pygemma_tpu_torch.core.lowrank.LowRankKinship`,
+scanned by default in its top eigenspace with the complement folded in
+implicitly.  Phenotypes are scanned one column at a time.  Device meshes and
+the divide-and-conquer eigh raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import hashlib
-from typing import Optional, Sequence
+import os
+import threading
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import pandas as pd
@@ -26,13 +33,29 @@ import torch
 from scipy import stats
 
 from .config import GwasConfig, from_env
-from .core.assoc import NullFit, assoc_block, fit_null
+from .convert import is_jax_object
+from .core.assoc import ImplicitCtx, NullFit, assoc_block, fit_null
 from .core.eigen import auto_eigendecompose, loading_transform, rotate
-from .core.grams import pair_products
+from .core.grams import pair_products, pdot
+from .core.lowrank import (
+    LowRankKinship,
+    lowrank_eigendecompose,
+    lowrank_top_basis,
+)
 from .core.solver import LambdaProblem, solve_lambda
-from .io.streaming import SnpBlockStreamer
+from .device import resolve_device, torch_dtype
+from .io.packed import PackedMatrix
+from .io.quantized import QuantizedMatrix
+from .io.streaming import (
+    SnpBlockStreamer,
+    _cache_budget_bytes,
+    prefill_device_cache,
+)
 from .utils.checkpoint import RunCheckpoint
 from .utils.logging import StageLogger
+
+#: genotype matrices that stream as codes and dequantize on the device
+_STREAMED = (PackedMatrix, QuantizedMatrix)
 
 #: single-entry device-resident eigendecomposition cache, keyed by the
 #: kinship fingerprint and device: repeated ``pygemma`` calls against the
@@ -41,42 +64,13 @@ from .utils.logging import StageLogger
 _EIGEN_DEV_CACHE: dict = {}
 
 
-def _check_matmul_precision() -> None:
-    """Refuse to run with TF32 matmuls: the REML scalars cancel badly, and
-    the JAX package holds every matmul to float32 grade (Precision.HIGH)."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    precision = torch.get_float32_matmul_precision()
-    if tf32 or precision != "highest":
-        raise RuntimeError(
-            "the LMM scan needs full float32 matmuls, but "
-            f"torch.backends.cuda.matmul.allow_tf32 is {tf32} and "
-            f"torch.get_float32_matmul_precision() is {precision!r} "
-            "(want False and 'highest')")
-
-
-def _resolve_device(device) -> torch.device:
-    """The compute device; CUDA unless the caller asks for the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the scan "
-            "on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    _check_matmul_precision()
-    return dev
-
-
 def _reject_unported(K, X, mesh, cfg: GwasConfig) -> None:
-    kind = type(K).__name__
-    if kind == "LowRankKinship":
-        raise NotImplementedError(
-            "low-rank kinships are not ported yet (later slice: low-rank / "
-            "implicit complement)")
-    if type(X).__name__ in ("QuantizedMatrix", "PackedMatrix"):
-        raise NotImplementedError(
-            f"{type(X).__name__} genotypes are not ported yet (later slice: "
-            "quantized and packed streaming)")
+    for name, obj in (("X", X), ("K", K)):
+        if is_jax_object(obj):
+            raise TypeError(
+                f"{name} is a {type(obj).__module__}.{type(obj).__name__}, "
+                "an object of the JAX package; convert it with "
+                "pygemma_tpu_torch.convert.from_jax first")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet (later slice: multi-GPU)")
@@ -95,19 +89,89 @@ def _result_keys(cfg) -> list:
     return keys
 
 
-def _assoc_block(ev, W, y, Xblock, cfg, null_arr, de) -> torch.Tensor:
+def _assoc_block(ev, W, y, Xblock, cfg, null_arr, de,
+                 implicit: Optional[ImplicitCtx] = None) -> torch.Tensor:
     """One SNP block -> a single stacked (n_keys, B) tensor, so the driver
     pulls one buffer per block."""
     null = (NullFit(null_arr[0], null_arr[1], null_arr[2])
             if null_arr is not None else None)
-    res = assoc_block(ev, W, y, Xblock, cfg, null=null, de=de, pvalues=False)
+    res = assoc_block(ev, W, y, Xblock, cfg, null=null, de=de, pvalues=False,
+                      implicit=implicit)
     d = res._asdict()
     return torch.stack([d[k] for k in _result_keys(cfg)])
 
 
-def _fit_null(ev, W, y, cfg) -> torch.Tensor:
-    nf = fit_null(ev, W, y, cfg)
+def _fit_null(ev, W, y, cfg,
+              implicit: Optional[ImplicitCtx] = None) -> torch.Tensor:
+    nf = fit_null(ev, W, y, cfg, implicit=implicit)
     return torch.stack([nf.lambda_reml, nf.lambda_ml, nf.loglik_ml])
+
+
+# --- implicit low-rank scan helpers (no n x n eigenbasis; see
+# core/lowrank.py::ImplicitBasis and core/grams.py::GramComplement) --------
+
+
+class _ImplicitScan(NamedTuple):
+    """Driver-side bundle for the implicit low-rank scan path."""
+
+    U_top: torch.Tensor  # (n, p_k)
+    W_raw: torch.Tensor  # (n, c) unrotated covariates
+    Y_raw: torch.Tensor  # (n, k) unrotated phenotypes
+    eps: float
+    n_total: int
+
+    def context(self, ph: int):
+        """(shared_raw, ImplicitCtx without per-SNP terms) of phenotype
+        ``ph``: the lambda-independent raw Gram of [W, y], once per
+        phenotype."""
+        shared_raw = torch.cat([self.W_raw, self.Y_raw[:, ph:ph + 1]], dim=1)
+        S_raw = _raw_gram(shared_raw)
+        s = S_raw.shape[0]
+        eps = torch.tensor(self.eps, dtype=S_raw.dtype, device=S_raw.device)
+        # the per-SNP fields are filled per block; the null fit ignores them
+        return shared_raw, ImplicitCtx(eps, self.n_total, S_raw,
+                                       S_raw.new_zeros((1, s)),
+                                       S_raw.new_zeros((1,)))
+
+
+def _raw_gram(shared_raw: torch.Tensor) -> torch.Tensor:
+    return pdot(shared_raw.T, shared_raw)
+
+
+def _implicit_prep(U_top, shared_raw, xb):
+    """Per-block top-space rotation + lambda-independent raw terms.
+
+    Replaces the n x n rotation GEMM (core/eigen.py::rotate) with an
+    n x p_k one plus an n x s raw cross GEMM: the only O(n) work the
+    implicit scan does per block.
+    """
+    C_x = pdot(U_top.T, xb)  # (p_k, B)
+    vS_raw = pdot(xb.T, shared_raw)  # (B, s)
+    vv_raw = torch.sum(xb * xb, dim=0)  # (B,)
+    return C_x, vS_raw, vv_raw
+
+
+@contextlib.contextmanager
+def _prefill_overlap(X, block: int, device):
+    """The opt-in background fill of the device block cache
+    (``PYGEMMA_TPU_PREFETCH_OVERLAP=1``): while the body runs, a thread
+    ships a file-backed PackedMatrix's blocks to the card, overlapping the
+    kinship's decomposition.  On exit the fill is stopped and waited for,
+    and an error it raised is raised here."""
+    if not (os.environ.get("PYGEMMA_TPU_PREFETCH_OVERLAP", "0") == "1"
+            and _cache_budget_bytes() > 0
+            and isinstance(X, PackedMatrix)
+            and X.cache_token is not None):
+        yield
+        return
+    stop = threading.Event()
+    with cf.ThreadPoolExecutor(max_workers=1) as pool:
+        fill = pool.submit(prefill_device_cache, X, block, stop, device)
+        try:
+            yield
+        finally:
+            stop.set()  # abandon blocks past what the scan needed
+            fill.result()
 
 
 def estimate_lambda(eigenVals, Y, W, restricted: bool = True,
@@ -121,7 +185,7 @@ def estimate_lambda(eigenVals, Y, W, restricted: bool = True,
     eigenVals (n,), Y (n,) outcome, W (n, q) design -- all already rotated
     into the kinship eigenbasis.
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     cfg = (config or from_env()).replace(grid=grid)
     dtype = np.dtype(cfg.dtype)
     ev = torch.as_tensor(np.asarray(eigenVals, dtype).reshape(-1)).to(dev)
@@ -136,10 +200,15 @@ def estimate_lambda(eigenVals, Y, W, restricted: bool = True,
 def _kinship_fingerprint(Karr: np.ndarray, max_samples: int = 4096) -> str:
     """Content hash of K for the eigen-checkpoint key.
 
-    Hashes a strided byte sample plus shape and dtype -- the same bytes as
-    ``pygemma_tpu.api._kinship_fingerprint``, so a run_dir eigen file
+    Hashes a strided byte sample plus shape and dtype (for a
+    :class:`LowRankKinship`, its own fingerprint bytes) -- the same bytes
+    as ``pygemma_tpu.api._kinship_fingerprint``, so a run_dir eigen file
     written by either package is found by the other."""
     h = hashlib.blake2b(digest_size=16)
+    if isinstance(Karr, LowRankKinship):
+        h.update(b"lowrank|")
+        h.update(Karr.fingerprint_bytes())
+        return h.hexdigest()
     h.update(repr((Karr.shape, Karr.dtype.str)).encode())
     stride = max(1, int(np.ceil(np.sqrt(Karr.size / max_samples))))
     sample = np.ascontiguousarray(Karr[::stride, ::stride]) \
@@ -183,11 +252,13 @@ def pygemma(
     Args mirror the reference driver (lmm/lmm.py:87-106):
       Y: (n,) or (n,1) phenotype (or (n,k): each column scanned in turn,
          results stacked with a ``pheno`` column).
-      X: (n, p) genotype matrix.
+      X: (n, p) genotype matrix: a float array, or a PackedMatrix /
+         QuantizedMatrix whose codes stream to the device (float32 only).
       W: (n, c) covariates; None -> intercept only.
-      K: (n, n) kinship, or, when ``eigen=False``, the precomputed eigenvalue
-         vector of K with X/Y/W already rotated.
-      Z: optional loading matrix, K <- Z K Z' (lmm/lmm.py:124-125).
+      K: (n, n) kinship, a LowRankKinship, or, when ``eigen=False``, the
+         precomputed eigenvalue vector of K with X/Y/W already rotated.
+      Z: optional loading matrix, K <- Z K Z' (lmm/lmm.py:124-125); needs a
+         dense K.
       de: differential-expression mode -- swaps roles of x and y
          (lmm/lmm.py:498-532).
       grid: pure grid-search lambda (pygemma_model.pyx:99-132).
@@ -195,7 +266,7 @@ def pygemma(
       device: "cuda" (the default) or "cpu"; without a CUDA device the
          default raises instead of falling back.
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     cfg = config or from_env()
     if grid:
         cfg = cfg.replace(grid=True)
@@ -208,26 +279,46 @@ def pygemma(
     Y = np.asarray(Y, dtype=dtype)
     if Y.ndim == 1:
         Y = Y[:, None]
-    X = np.asarray(X, dtype=dtype)
+    if isinstance(X, _STREAMED):
+        # int8 / 2-bit codes stream to the device and dequantize there;
+        # the float matrix never exists on the host
+        if dtype != np.float32:
+            raise ValueError("quantized genotype streaming is float32-only")
+    else:
+        X = np.asarray(X, dtype=dtype)
     n, p = X.shape
     W = np.ones((n, 1), dtype=dtype) if W is None else np.asarray(W, dtype)
     c = W.shape[1]
 
     if not disable_checks:
         for name, arr in (("X", X), ("Y", Y), ("W", W)):
-            if np.isnan(arr).any():
+            if isinstance(arr, _STREAMED):
+                # codes cannot hold NaN, but a corrupt affine sidecar (NaN
+                # mu, non-finite or non-positive sd) would spread NaN/Inf
+                # into every dequantized value
+                if (np.isnan(arr.mu).any()
+                        or not np.all(np.isfinite(arr.sd))
+                        or (arr.sd <= 0).any()):
+                    raise ValueError(
+                        f"invalid quantization sidecar on {name}: "
+                        "mu must be finite and sd finite-positive")
+            elif np.isnan(arr).any():
                 raise ValueError(f"NaNs present in {name}")
 
     def to_dev(a):
         return torch.as_tensor(np.asarray(a, dtype)).to(dev)
 
+    lowrank = isinstance(K, LowRankKinship)
     if Z is not None and eigen:
+        if lowrank:
+            raise ValueError("Z loading transform requires a dense K")
         K = loading_transform(to_dev(Z), to_dev(K)).cpu().numpy()
 
     ckpt = None
     eig_key = ""
     if eigen and K is not None:
-        eig_key = f"{_kinship_fingerprint(np.asarray(K))}|{cfg.dtype}"
+        fingerprint = _kinship_fingerprint(K if lowrank else np.asarray(K))
+        eig_key = f"{fingerprint}|{cfg.dtype}"
     if run_dir is not None:
         ckpt = RunCheckpoint(run_dir)
         ckpt.clean_stale()
@@ -244,38 +335,67 @@ def pygemma(
                 f"{run_meta}"
             )
 
-    # --- eigendecomposition + rotation (lmm/lmm.py:151-167, 243-246) -------
-    if eigen:
-        cache_key = (eig_key, str(dev))
+    def eigen_basis(key, stage, compute):
+        """(ev, U) on the device: from the device cache, the run_dir, or
+        ``compute()``; the result becomes the device cache's one entry."""
+        cache_key = (key, str(dev))
         dev_cached = _EIGEN_DEV_CACHE.get(cache_key)
         if dev_cached is not None:
-            ev_dev, U_dev = dev_cached
+            return dev_cached
+        cached = ckpt.load_eigen(key) if ckpt is not None else None
+        if cached is not None:
+            ev_d, U_d = to_dev(cached[0]), to_dev(cached[1])
         else:
-            cached = ckpt.load_eigen(eig_key) if ckpt is not None else None
-            if cached is not None:
-                ev_dev, U_dev = to_dev(cached[0]), to_dev(cached[1])
-            else:
-                with log.stage("eigendecomposition"):
-                    ev_dev, U_dev = auto_eigendecompose(
-                        np.asarray(K, dtype), cfg.eigh_backend, dtype, dev)
-                if ckpt is not None:
-                    ckpt.save_eigen(ev_dev.cpu().numpy(), U_dev.cpu().numpy(),
-                                    eig_key)
-            _EIGEN_DEV_CACHE.clear()
-            _EIGEN_DEV_CACHE[cache_key] = (ev_dev, U_dev)
-        with log.stage("rotation of W, Y"):
-            W_dev = rotate(U_dev, to_dev(W))
-            Y_dev = rotate(U_dev, to_dev(Y))
-    else:
-        ev_dev = torch.clamp_min(to_dev(np.asarray(K).reshape(-1)), 0.0)
-        U_dev = None
-        W_dev = to_dev(W)
-        Y_dev = to_dev(Y)
+            with log.stage(stage):
+                ev_d, U_d = compute()
+            if ckpt is not None:
+                ckpt.save_eigen(ev_d.cpu().numpy(), U_d.cpu().numpy(), key)
+        ev_d, U_d = ev_d.to(torch_dtype(dtype)), U_d.to(torch_dtype(dtype))
+        _EIGEN_DEV_CACHE.clear()
+        _EIGEN_DEV_CACHE[cache_key] = (ev_d, U_d)
+        return ev_d, U_d
 
     B = min(cfg.snp_block, max(p, 1))
+    # the opt-in fill of the device block cache overlaps the decomposition
+    with _prefill_overlap(X, B, dev):
+        # --- eigendecomposition + rotation (lmm/lmm.py:151-167, 243-246) ---
+        impl = None  # _ImplicitScan when the implicit low-rank path is active
+        if eigen and lowrank and cfg.lowrank_implicit is not False:
+            def top_basis():
+                basis = lowrank_top_basis(K, cfg.eigh_backend, device=dev)
+                return basis.ev_top, basis.U_top
+
+            ev_dev, U_top = eigen_basis(eig_key + "|implicit",
+                                        "implicit low-rank eigendecomposition",
+                                        top_basis)
+            with log.stage("rotation of W, Y (top space)"):
+                W_raw, Y_raw = to_dev(W), to_dev(Y)
+                W_dev = rotate(U_top, W_raw)
+                Y_dev = rotate(U_top, Y_raw)
+            U_dev = None  # no n x n basis exists on this path
+            impl = _ImplicitScan(U_top, W_raw, Y_raw, float(K.eps), n)
+        elif eigen:
+            if lowrank:
+                def compute():
+                    return lowrank_eigendecompose(K, cfg.eigh_backend, dtype,
+                                                  device=dev)
+            else:
+                def compute():
+                    return auto_eigendecompose(np.asarray(K, dtype),
+                                               cfg.eigh_backend, dtype, dev)
+            ev_dev, U_dev = eigen_basis(eig_key, "eigendecomposition", compute)
+            with log.stage("rotation of W, Y"):
+                W_dev = rotate(U_dev, to_dev(W))
+                Y_dev = rotate(U_dev, to_dev(Y))
+        else:
+            ev_dev = torch.clamp_min(to_dev(np.asarray(K).reshape(-1)), 0.0)
+            U_dev = None
+            W_dev = to_dev(W)
+            Y_dev = to_dev(Y)
+
+        frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
+                                     de, n, p, B, log, ckpt, dev, impl)
     n_pheno = Y.shape[1]
-    frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n,
-                                 p, B, log, ckpt, dev)
     results_df = pd.concat(frames, ignore_index=True) if len(frames) > 1 else frames[0]
     if snps is not None:
         results_df["SNPs"] = (
@@ -285,17 +405,20 @@ def pygemma(
 
 
 def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
-                        log, ckpt, dev):
+                        log, ckpt, dev, impl: Optional[_ImplicitScan] = None):
     n_pheno = Y_dev.shape[1]
     c = W_dev.shape[1]
     frames = []
     keys = _result_keys(cfg)
     for ph in range(n_pheno):
         y_dev = Y_dev[:, ph]
+        shared_raw = ictx = None
+        if impl is not None:
+            shared_raw, ictx = impl.context(ph)
         null_arr = None
         if ("lrt" in cfg.tests) or ("score" in cfg.tests):
             with log.stage("null-model fit"):
-                null_arr = _fit_null(ev_dev, W_dev, y_dev, cfg)
+                null_arr = _fit_null(ev_dev, W_dev, y_dev, cfg, ictx)
 
         cols = {k: [] for k in ("beta", "se_beta", "tau", "lambda", "F_wald")}
         if "lrt" in cfg.tests:
@@ -347,10 +470,16 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
                     if ckpt is not None and ckpt.has_block(ph * p + start):
                         pending.append(("blk", ckpt.load_block(ph * p + start)))
                         continue
-                    if U_dev is not None:
+                    block_ctx = None
+                    if impl is not None:
+                        xb_dev, vS_raw, vv_raw = _implicit_prep(
+                            impl.U_top, shared_raw, xb_dev)
+                        block_ctx = ictx._replace(vS_raw=vS_raw,
+                                                  vv_raw=vv_raw)
+                    elif U_dev is not None:
                         xb_dev = rotate(U_dev, xb_dev)
                     stacked = _assoc_block(ev_dev, W_dev, y_dev, xb_dev, cfg,
-                                           null_arr, de)
+                                           null_arr, de, block_ctx)
                     if writer is not None:
                         pending.append(writer.submit(_pull_save, start, m,
                                                      stacked))

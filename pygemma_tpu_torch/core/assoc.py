@@ -19,10 +19,12 @@ from scipy import stats
 from ..config import GwasConfig, MIN_VAL
 from . import reml
 from .grams import (
+    GramComplement,
     grams_per_snp_lambda,
     grams_per_snp_lambda_fused,
     grams_shared_lambda,
     pair_products,
+    pdot,
     permute_x_before_y,
 )
 from .solver import LambdaProblem, solve_lambda
@@ -41,6 +43,35 @@ class NullFit(NamedTuple):
     lambda_reml: torch.Tensor  # () REML lambda under y ~ W
     lambda_ml: torch.Tensor  # () ML lambda under y ~ W
     loglik_ml: torch.Tensor  # () ML log-likelihood at lambda_ml
+
+
+class ImplicitCtx(NamedTuple):
+    """Implicit low-rank kinship context for one association block.
+
+    Marks that ``ev``/``W``/``y``/``X`` handed to :func:`assoc_block` live
+    in the p_k-dimensional top eigenspace (rotated by U_top only; see
+    core/lowrank.py::ImplicitBasis) and carries the raw (unrotated) Gram
+    terms the complement correction needs.  ``S_raw`` is the (s, s) Gram of
+    the raw [W, y] columns; ``vS_raw``/``vv_raw`` are the raw genotype
+    cross/self terms, all lambda-independent and computed once per block.
+    """
+
+    eps: torch.Tensor  # () complement eigenvalue (the kinship ridge)
+    n_total: int  # the true sample count n
+    S_raw: torch.Tensor  # (s, s)
+    vS_raw: torch.Tensor  # (B, s)
+    vv_raw: torch.Tensor  # (B,)
+
+
+def _implicit_complement(implicit: ImplicitCtx, shared_c: torch.Tensor,
+                         C_x: torch.Tensor) -> GramComplement:
+    """Residual Grams R = T'T - C'C over columns [shared | x].  Exact in
+    infinite precision because U_top's columns are orthonormal."""
+    R_S = implicit.S_raw - pdot(shared_c.T, shared_c)
+    R_vS = implicit.vS_raw - pdot(C_x.T, shared_c)
+    R_vv = implicit.vv_raw - torch.sum(C_x * C_x, dim=0)
+    n_comp = implicit.n_total - shared_c.shape[0]
+    return GramComplement(implicit.eps, n_comp, R_S, R_vS, R_vv)
 
 
 class AssocResult(NamedTuple):
@@ -74,15 +105,31 @@ def chi2_sf_1df(x: torch.Tensor) -> torch.Tensor:
     return torch.special.gammaincc(half, torch.clamp_min(x, 0.0) / 2.0)
 
 
-def fit_null(ev, W, y, cfg: GwasConfig) -> NullFit:
-    """Fit the null model y ~ W once per phenotype (for score/LRT tests)."""
+def fit_null(ev, W, y, cfg: GwasConfig,
+             implicit: Optional[ImplicitCtx] = None) -> NullFit:
+    """Fit the null model y ~ W once per phenotype (for score/LRT tests).
+
+    With ``implicit``, W/y are U_top-rotated and ``implicit.S_raw`` is the
+    raw (s, s) Gram of [W, y]; the null design's residuals are carved out
+    of it (shared = W, outcome = y).
+    """
     n, c = W.shape
+    comp = None
+    if implicit is not None:
+        n = implicit.n_total
+        full_c = torch.cat([W, y[:, None]], dim=1)  # (p_k, c+1)
+        R_full = implicit.S_raw - pdot(full_c.T, full_c)
+        comp = GramComplement(implicit.eps, implicit.n_total - W.shape[0],
+                              R_full[:c, :c], R_full[c:c + 1, :c],
+                              R_full[c, c][None])
     pairs = pair_products(W)
     v = y[:, None]
     v2 = v * v
-    prob_reml = LambdaProblem(ev, W, pairs, v, v2, n, c, False, True)
+    prob_reml = LambdaProblem(ev, W, pairs, v, v2, n, c, False, True,
+                              comp=comp)
     lam_reml, _ = solve_lambda(prob_reml, cfg)
-    prob_ml = LambdaProblem(ev, W, pairs, v, v2, n, c, False, False)
+    prob_ml = LambdaProblem(ev, W, pairs, v, v2, n, c, False, False,
+                            comp=comp)
     lam_ml, logl_ml = solve_lambda(prob_ml, cfg)
     return NullFit(lam_reml[0], lam_ml[0], logl_ml[0])
 
@@ -96,36 +143,44 @@ def assoc_block(
     null: Optional[NullFit] = None,
     de: bool = False,
     pvalues: bool = True,
+    implicit: Optional[ImplicitCtx] = None,
 ) -> AssocResult:
     """Run the LMM association tests for one SNP block.
 
     Standard mode fits  y = W a + x b + u + e  per SNP x; DE mode
     (reference lmm/lmm.py:498-532) swaps roles and fits  x = W a + y b + u + e.
+    With ``implicit`` the inputs are U_top-rotated (p_k rows) and the
+    complement enters through lambda-independent residual Grams.
     ``pvalues=False`` leaves ``p_wald``/``p_score`` as None: the F survival
     function runs on the host (:func:`f_sf`), and the driver computes the
     table's p-values there once, after the scan, instead of waiting for the
     card at every block.
     """
     n, c = W.shape
+    if implicit is not None:
+        n = implicit.n_total
     dtype = X.dtype
     shared = torch.cat([W, y[:, None]], dim=1)  # (n, c+1): [W, y]
     pairs = pair_products(shared)
     X2 = X * X
     fused = _use_fused(cfg, X)
+    comp = (_implicit_complement(implicit, shared, X)
+            if implicit is not None else None)
 
     # Lambda optimization with the full design.  Standard: design [W, x]
     # (permuted Gram order [W, x, y]); DE: design [W, y], outcome x.
     prob = LambdaProblem(ev, shared, pairs, X, X2, n, c + 1, not de, True,
-                         fused)
+                         fused, comp)
     lam_star, _ = solve_lambda(prob, cfg)
 
     # Final statistics at lambda*: one k=1 Gram build.
     if fused:
         grams, sums = grams_per_snp_lambda_fused(
-            lam_star, ev, shared, pairs, X, (1,), want_logh=False)
+            lam_star, ev, shared, pairs, X, (1,), want_logh=False, comp=comp)
     else:
         grams, sums = grams_per_snp_lambda(
-            lam_star, ev, shared, pairs, X, X2, (1,), want_logh=False)
+            lam_star, ev, shared, pairs, X, X2, (1,), want_logh=False,
+            comp=comp)
     A1 = grams[0]
     if not de:
         A1 = permute_x_before_y(A1, c)
@@ -137,9 +192,11 @@ def assoc_block(
 
     df = float(n - c - 1)
     # Degenerate predictors (x collinear with W, e.g. a constant SNP) have
-    # x'P_c x == 0 up to roundoff.  The reference's contract for a singular
-    # design is a FULL NaN row (every column, lmm/lmm.py:484-493): gate
-    # every per-SNP output on the same mask.
+    # x'P_c x == 0 up to roundoff -- possibly exactly zero or negative on
+    # the implicit path, where beta = xPy/xPx would emit inf and p = 0.
+    # The reference's contract for a singular design is a FULL NaN row
+    # (every column, lmm/lmm.py:484-493): gate every per-SNP output on the
+    # same mask.
     x_ok = xPx > MIN_VAL
     nan = float("nan")
     beta = torch.where(x_ok, xPy / torch.clamp_min(xPx, MIN_VAL), nan)
@@ -160,7 +217,7 @@ def assoc_block(
         if null is None:
             raise ValueError("the LRT requires a null-model fit")
         prob_ml = LambdaProblem(ev, shared, pairs, X, X2, n, c + 1, not de,
-                                False, fused)
+                                False, fused, comp)
         lam_ml, logl_H1 = solve_lambda(prob_ml, cfg)
         D = 2.0 * (logl_H1 - null.loglik_ml)
         p_lrt = torch.where(x_ok, chi2_sf_1df(D), nan)
@@ -173,7 +230,8 @@ def assoc_block(
         if null is None:
             raise ValueError("the score test requires a null-model fit")
         grams0, _ = grams_shared_lambda(
-            null.lambda_reml.to(dtype), ev, shared, pairs, X, X2, (1,))
+            null.lambda_reml.to(dtype), ev, shared, pairs, X, X2, (1,),
+            comp=comp)
         A1s = grams0[0]
         if not de:
             A1s = permute_x_before_y(A1s, c)

@@ -17,6 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import torch_dtype
+
 
 def eigendecompose(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric eigendecomposition with the reference's eigenvalue clamp.
@@ -69,14 +71,19 @@ def auto_eigendecompose(K, backend: str = "auto", dtype=None,
                         device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
     """Eigendecompose K and return (ev, U) as tensors on ``device``.
 
-    "device" runs ``torch.linalg.eigh`` on ``device``; "host" runs LAPACK on
-    the host and copies the result over; "auto" takes the device eigh on a
-    CPU device, and on a CUDA device when :func:`device_eigh_fits`, else the
-    host.  The JAX package's "dc" (spectral divide and conquer) backend is
-    not ported.
+    ``K`` is a host array or a tensor; a tensor already on ``device`` (the
+    low-rank path's p_k x p_k Gram) is decomposed there without a trip
+    through the host.  "device" runs ``torch.linalg.eigh`` on ``device``;
+    "host" runs LAPACK on the host and copies the result over; "auto" takes
+    the device eigh on a CPU device, and on a CUDA device when
+    :func:`device_eigh_fits`, else the host.  The JAX package's "dc"
+    (spectral divide and conquer) backend is not ported.
     """
     device = torch.device(device)
-    Kt = torch.as_tensor(np.asarray(K, dtype=dtype))
+    if isinstance(K, torch.Tensor):
+        Kt = K if dtype is None else K.to(torch_dtype(dtype))
+    else:
+        Kt = torch.as_tensor(np.asarray(K, dtype=dtype))
     if backend == "dc":
         raise NotImplementedError(
             "eigh_backend='dc' is not ported; on the card use 'device' or "
@@ -90,5 +97,5 @@ def auto_eigendecompose(K, backend: str = "auto", dtype=None,
             or device_eigh_fits(Kt.shape[0], Kt.element_size(), device)))
     if on_device:
         return eigendecompose(Kt.to(device))
-    ev, U = host_eigendecompose(Kt.numpy(), dtype)
+    ev, U = host_eigendecompose(Kt.cpu().numpy(), dtype)
     return torch.as_tensor(ev).to(device), torch.as_tensor(U).to(device)

@@ -19,14 +19,18 @@ evaluations are O(B * t^3) batched small-matrix algebra
   hand-written kernel in :mod:`pygemma_tpu_torch.ops.gram_kernel` computes
   the same sums without them (:func:`grams_per_snp_lambda_fused`).
 
+Each builder takes an optional :class:`GramComplement`: the implicit
+low-rank kinship's complement eigenspace, folded in after the top-space
+sums.
+
 Every matmul here runs in full float32 or float64: the entry points refuse
-to run with TF32 enabled (api.py::_check_matmul_precision).
+to run with TF32 enabled (device.py::check_matmul_precision).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,11 +54,39 @@ class GramSums(NamedTuple):
     sum_logh: torch.Tensor
 
 
-def _no_complement(comp) -> None:
-    if comp is not None:
-        raise NotImplementedError(
-            "implicit low-rank complements (GramComplement) are not ported "
-            "yet; they arrive with the low-rank kinship slice")
+class GramComplement(NamedTuple):
+    """Implicit-complement extension of a Gram problem (low-rank kinship).
+
+    For K = s*GG' + eps*I the (n - p_k)-dimensional complement eigenspace
+    has the single eigenvalue eps, so the scan never needs the n x n
+    eigenbasis: columns are rotated only into the p_k-dimensional top space
+    (c = U_top' t), and the lambda-independent residual Grams
+
+        R = T'T - C'C          (split as R_S / R_vS / R_vv below)
+
+    are carried once per block.  Every weighted Gram then corrects in
+    O(s^2) per SNP:
+
+        A_k = [c-space Gram with weights (lam*ev_top + 1)^-k]
+              + w_c^k * R,              w_c = 1/(lam*eps + 1)
+        sum_{d^k} += n_comp * w_c^k;    sum_logh += n_comp*log(lam*eps + 1)
+
+    ``n_comp`` = n - p_k.  Rank-deficient Gram directions keep a zero U_top
+    column with ev_top = eps, so shapes stay fixed and the residual picks
+    their mass up at exactly the complement weight.
+    """
+
+    eps: torch.Tensor  # () ridge = the complement eigenvalue
+    n_comp: int  # n - p_k
+    R_S: torch.Tensor  # (s, s) residual Gram of the shared columns
+    R_vS: torch.Tensor  # (B, s) residual cross terms of the per-SNP column
+    R_vv: torch.Tensor  # (B,)   residual self terms
+
+
+def _complement_wc(lam, comp: GramComplement):
+    """w_c = 1/(lam*eps + 1) and log(lam*eps + 1), shaped like ``lam``."""
+    he = lam * comp.eps + 1.0
+    return 1.0 / he, torch.log(he)
 
 
 @functools.lru_cache(maxsize=64)
@@ -111,6 +143,47 @@ def _assemble(S_k, vS_k, vv_k, B: int, s: int) -> torch.Tensor:
     return _assemble_nd(S_k, vS_k, vv_k)
 
 
+def _complement_correct(grams, sums: GramSums, ks, comp: GramComplement,
+                        lam, mode: str, want_logh: bool):
+    """Fold the implicit complement into c-space Grams/sums (O(s^2)/SNP).
+
+    ``mode`` names the lambda layout: "scalar" (lam (), A (B,t,t), sums
+    scalar), "multi" (lam (G,), A (G,B,t,t), sums (G,1)), "per_snp"
+    (lam (B,), A (B,t,t), sums (B,)), "slots" (lam (B,R), A (B,R,t,t),
+    sums (B,R)).
+    """
+    B, s = comp.R_vS.shape
+    B_block = grams[0].shape[1 if mode == "multi" else 0]
+    if B != B_block:
+        # (1, s) residuals would broadcast over the block without a word
+        raise ValueError(f"the complement holds residuals of {B} SNPs for "
+                         f"a block of {B_block}")
+    wc, logc = _complement_wc(lam, comp)
+    R = _assemble(comp.R_S, comp.R_vS, comp.R_vv, B, s)  # (B, t, t)
+    if mode == "slots":
+        R = R[:, None]
+    # unit axes that broadcast a lambda-shaped weight against a Gram and
+    # against a sum
+    g_axes, s_axes = {"scalar": (0, 0), "multi": (3, 1), "per_snp": (2, 0),
+                      "slots": (2, 0)}[mode]
+
+    def unit(w, k):
+        return w.reshape(w.shape + (1,) * k)
+
+    nc = float(comp.n_comp)
+    # every builder returns grams in ascending-k order, so sorted(ks) is
+    # the zip order however the caller spelled ks
+    grams = tuple(A + unit(wc ** k, g_axes) * R
+                  for A, k in zip(grams, sorted(ks)))
+    sums = GramSums(
+        sum_d=sums.sum_d + nc * unit(wc, s_axes),
+        sum_d2=sums.sum_d2 + nc * unit(wc * wc, s_axes),
+        sum_logh=(sums.sum_logh + nc * unit(logc, s_axes) if want_logh
+                  else sums.sum_logh),
+    )
+    return grams, sums
+
+
 def grams_shared_lambda(
     lam: torch.Tensor,  # scalar
     ev: torch.Tensor,  # (n,)
@@ -120,14 +193,13 @@ def grams_shared_lambda(
     v2: torch.Tensor,  # (n, B) = v * v
     ks: Sequence[int],
     want_logh: bool = False,
-    comp=None,
+    comp: Optional[GramComplement] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
     """Gram tensors with one lambda for the whole SNP block.
 
     Cost: one (B,n)x(n,s) GEMM and one (B,n)x(n,) matvec per k; the shared
     s x s block is an O(n m) reduction shared by every SNP.
     """
-    _no_complement(comp)
     n, s = shared.shape
     B = v.shape[1]
     h = lam * ev + 1.0
@@ -146,6 +218,9 @@ def grams_shared_lambda(
         sum_d2=torch.sum(d * d),
         sum_logh=torch.sum(torch.log(h)) if want_logh else d.new_zeros(()),
     )
+    if comp is not None:
+        return _complement_correct(tuple(grams), sums, ks, comp, lam,
+                                   "scalar", want_logh)
     return tuple(grams), sums
 
 
@@ -158,14 +233,13 @@ def grams_shared_multi(
     v2: torch.Tensor,  # (n, B)
     ks: Sequence[int],
     want_logh: bool = False,
-    comp=None,
+    comp: Optional[GramComplement] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
     """Gram tensors for a whole lambda *grid* at once: (G, B, s+1, s+1).
 
     Batching every (lambda, k) weight column into one wide GEMM reads the
     genotype block exactly once.
     """
-    _no_complement(comp)
     n, s = shared.shape
     B = v.shape[1]
     G = lams.shape[0]
@@ -202,6 +276,9 @@ def grams_shared_multi(
         if want_logh
         else d.new_zeros((G, 1)),
     )
+    if comp is not None:
+        return _complement_correct(tuple(grams), sums, ks, comp, lams,
+                                   "multi", want_logh)
     return tuple(grams), sums
 
 
@@ -214,14 +291,13 @@ def grams_per_snp_lambda(
     v2: torch.Tensor,  # (n, B)
     ks: Sequence[int],
     want_logh: bool = False,
-    comp=None,
+    comp: Optional[GramComplement] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
     """Gram tensors with an independent lambda per SNP.
 
     Cost per k: a (B,n)x(n,m) GEMM for the shared pairs, a (B,n) elementwise
     product plus a (B,n)x(n,s) GEMM for the per-SNP column terms.
     """
-    _no_complement(comp)
     n, s = shared.shape
     B = v.shape[1]
     h = lam[:, None] * ev[None, :] + 1.0  # (B, n)
@@ -243,6 +319,9 @@ def grams_per_snp_lambda(
         if want_logh
         else d.new_zeros((B,)),
     )
+    if comp is not None:
+        return _complement_correct(tuple(grams), sums, ks, comp, lam,
+                                   "per_snp", want_logh)
     return tuple(grams), sums
 
 
@@ -254,7 +333,7 @@ def grams_per_snp_lambda_fused(
     v: torch.Tensor,  # (n, B) per-SNP columns (natural genotype layout)
     ks: Sequence[int],
     want_logh: bool = False,
-    comp=None,
+    comp: Optional[GramComplement] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
     """Kernel-fused variant of :func:`grams_per_snp_lambda`.
 
@@ -265,7 +344,6 @@ def grams_per_snp_lambda_fused(
     """
     from ..ops.gram_kernel import fused_grams
 
-    _no_complement(comp)
     s = shared.shape[1]
     kmax = max(ks)
     S, vS, vv, sum_d, sum_d2, sum_logh = fused_grams(
@@ -277,8 +355,14 @@ def grams_per_snp_lambda_fused(
     for k in sorted(ks):
         S_k = unpack_sym(S[..., k - 1, :], s)
         grams.append(_assemble_nd(S_k, vS[..., k - 1, :], vv[..., k - 1]))
-    return tuple(grams), GramSums(sum_d=sum_d, sum_d2=sum_d2,
-                                  sum_logh=sum_logh)
+    sums = GramSums(sum_d=sum_d, sum_d2=sum_d2, sum_logh=sum_logh)
+    if comp is not None:
+        # the complement correction stays outside the kernel: O(s^2) work
+        # per (SNP, slot) on the kernel's outputs
+        return _complement_correct(
+            tuple(grams), sums, ks, comp, lam,
+            "per_snp" if lam.ndim == 1 else "slots", want_logh)
+    return tuple(grams), sums
 
 
 def grams_per_snp_lambda_slots(
@@ -290,7 +374,7 @@ def grams_per_snp_lambda_slots(
     v2: torch.Tensor,
     ks: Sequence[int],
     want_logh: bool = False,
-    comp=None,
+    comp: Optional[GramComplement] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
     """Unfused multi-slot lambda: per-slot builds stacked on axis 1."""
     parts = [

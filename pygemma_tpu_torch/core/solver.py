@@ -29,13 +29,14 @@ per iteration); :func:`host_value` counts both.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import GwasConfig
 from . import reml
 from .grams import (
+    GramComplement,
     grams_per_snp_lambda,
     grams_per_snp_lambda_fused,
     grams_per_snp_lambda_slots,
@@ -65,6 +66,13 @@ class LambdaProblem(NamedTuple):
     with ``permute=False`` it is shared[:, :q] (null model / DE mode).
     ``restricted`` selects REML vs ML.  ``fused=True`` routes per-SNP-lambda
     evaluations through the fused Gram kernel (ops/gram_kernel.py).
+
+    ``comp`` (optional) marks an implicit low-rank problem: ``ev``/``shared``
+    /``pairs``/``v``/``v2`` then live in the p_k-dimensional top eigenspace
+    (rotated by U_top only) while ``comp`` carries the complement eigenvalue
+    and the lambda-independent residual Grams
+    (:class:`pygemma_tpu_torch.core.grams.GramComplement`); ``n`` stays the
+    true sample count.
     """
 
     ev: torch.Tensor
@@ -77,6 +85,7 @@ class LambdaProblem(NamedTuple):
     permute: bool
     restricted: bool
     fused: bool = False
+    comp: Optional[GramComplement] = None
 
 
 _KS = {"d1": (1, 2), "newton": (1, 2, 3), "lik": (1,)}
@@ -90,24 +99,20 @@ def evaluate(problem: LambdaProblem, lam, need: str, shared_lam):
     outputs from one wide GEMM; otherwise ``lam`` is (B,) or (B, R).
     """
     ks = _KS[need]
-    want_logh = need == "lik"
+    kw = dict(want_logh=need == "lik", comp=problem.comp)
     args = (problem.ev, problem.shared, problem.pairs, problem.v)
     if shared_lam == "multi":
-        grams, sums = grams_shared_multi(lam, *args, problem.v2, ks,
-                                         want_logh=want_logh)
+        grams, sums = grams_shared_multi(lam, *args, problem.v2, ks, **kw)
         lam = lam[:, None]  # broadcast (G, 1) against (G, B) scalars
     elif shared_lam:
-        grams, sums = grams_shared_lambda(lam, *args, problem.v2, ks,
-                                          want_logh=want_logh)
+        grams, sums = grams_shared_lambda(lam, *args, problem.v2, ks, **kw)
     elif problem.fused:
-        grams, sums = grams_per_snp_lambda_fused(lam, *args, ks,
-                                                 want_logh=want_logh)
+        grams, sums = grams_per_snp_lambda_fused(lam, *args, ks, **kw)
     elif lam.ndim == 2:
         grams, sums = grams_per_snp_lambda_slots(lam, *args, problem.v2, ks,
-                                                 want_logh=want_logh)
+                                                 **kw)
     else:
-        grams, sums = grams_per_snp_lambda(lam, *args, problem.v2, ks,
-                                           want_logh=want_logh)
+        grams, sums = grams_per_snp_lambda(lam, *args, problem.v2, ks, **kw)
     if problem.permute:
         c = problem.q - 1
         grams = tuple(permute_x_before_y(A, c) for A in grams)
@@ -267,8 +272,13 @@ def solve_lambda(problem: LambdaProblem, cfg: GwasConfig
         sel = sorted_idx[k * B:(k + 1) * B]
         snp_idx = sel // R
         valid_c = flat_valid[sel][:, None]  # (B, 1)
+        comp_c = None
+        if problem.comp is not None:
+            # the per-SNP residual terms travel with their lanes
+            comp_c = problem.comp._replace(R_vS=problem.comp.R_vS[snp_idx],
+                                           R_vv=problem.comp.R_vv[snp_idx])
         prob_c = problem._replace(v=problem.v[:, snp_idx],
-                                  v2=problem.v2[:, snp_idx])
+                                  v2=problem.v2[:, snp_idx], comp=comp_c)
         lam_c, lik_c = refine_body(
             prob_c, lo0_f[sel][:, None], hi0_f[sel][:, None],
             valid_c, flo_f[sel][:, None],

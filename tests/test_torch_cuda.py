@@ -1,6 +1,7 @@
 """Cases that need a CUDA card: the hand-written kernel against its plain
-version, the pinned-buffer streamer, and the scan on the card against the
-scan on the CPU.
+version (also at the implicit low-rank path's shape), the pinned-buffer
+streamer for float, 2-bit and int8 genotypes, the device block cache under a
+racing prefill, and the scan on the card against the scan on the CPU.
 
 The module imports neither jax nor pygemma_tpu, so on a machine with a card
 it runs without the JAX-configuring conftest:
@@ -10,6 +11,9 @@ it runs without the JAX-configuring conftest:
 Without a card every case skips.
 """
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,9 @@ import torch
 import oracle
 import pygemma_tpu_torch as pt
 from pygemma_tpu_torch.core.grams import pair_products
+from pygemma_tpu_torch.io import streaming
+from pygemma_tpu_torch.io.packed import PackedMatrix, write_rawbin_2bit
+from pygemma_tpu_torch.io.quantized import MISSING_CODE, QuantizedMatrix
 from pygemma_tpu_torch.io.streaming import SnpBlockStreamer
 from pygemma_tpu_torch.ops import gram_kernel as gk
 
@@ -96,6 +103,14 @@ def test_kernel_extreme_lambda(cuda, pow_):
         _kernel_inputs(4099, 300, 3, 1, cuda, lam_pows=(pow_, pow_)), 3, True)
 
 
+@pytest.mark.parametrize("R,kmax,want_logh", [(1, 3, False), (2, 1, True)])
+def test_kernel_at_the_implicit_shape(cuda, R, kmax, want_logh):
+    """The implicit low-rank path's shape: p_k = 16,384 rows (splits capped
+    at 1,024) and blocks of 8,192 SNPs."""
+    _check_against_plain(_kernel_inputs(16_384, 8_192, 3, R, cuda), kmax,
+                         want_logh)
+
+
 def test_kernel_launches_are_bit_identical(cuda):
     args = _kernel_inputs(10_000, 2048, 3, 1, cuda)
     for kmax in (1, 3):
@@ -114,6 +129,70 @@ def test_streamer_blocks_match_the_host(cuda):
         host = xb.cpu().numpy()
         np.testing.assert_array_equal(host[:, :stop - start], X[:, start:stop])
         assert not host[:, stop - start:].any()
+
+
+def _coded(kind, n=1001, p=300):
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 3, size=(n, p)).astype(np.uint8)
+    if kind == "int8":
+        g = codes.astype(np.int8)
+        g[1, 3] = g[7, 3] = MISSING_CODE
+        return QuantizedMatrix.from_dosages(g)
+    if kind == "bed":
+        codes = np.array([0, 2, 3], np.uint8)[codes]
+    codes[1, 3] = codes[7, 3] = 1 if kind == "bed" else 3
+    return PackedMatrix.from_codes(codes, coding=kind)
+
+
+@pytest.mark.parametrize("kind", ["dosage", "bed", "int8"])
+def test_streamed_blocks_are_bit_exact(cuda, kind):
+    """2-bit and int8 codes ship through the pinned ring and dequantize on
+    the card: each block equals the host slice bit for bit."""
+    X = _coded(kind)
+    blocks = list(SnpBlockStreamer(X, 128, device=cuda))
+    assert [(a, b) for a, b, _ in blocks] == [(0, 128), (128, 256),
+                                             (256, 300)]
+    for start, stop, xb in blocks:
+        assert xb.is_cuda and xb.dtype == torch.float32
+        np.testing.assert_array_equal(xb[:, :stop - start].cpu().numpy(),
+                                      X[:, start:stop])
+
+
+def test_block_cache_with_racing_prefill(cuda, tmp_path, monkeypatch):
+    """Prefill threads racing the streamer on the card: every block lands in
+    the cache once, the byte count equals the entries, and both the
+    streamed and the cached blocks equal the host slices."""
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 3, size=(999, 640)).astype(np.uint8)
+    Q0 = PackedMatrix.from_codes(codes)
+    prefix = str(tmp_path / "c")
+    write_rawbin_2bit(prefix, codes, Q0.mu, Q0.sd)
+    X = PackedMatrix.open_rawbin(prefix)
+    host = X[:, :]
+    monkeypatch.setenv("PYGEMMA_TPU_GENO_DEV_CACHE_MB", "64")
+    cache = streaming._DEV_BLOCK_CACHE
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        streaming.clear_device_block_cache()
+        threads = [threading.Thread(
+            target=streaming.prefill_device_cache, args=(X, 32),
+            kwargs={"device": cuda}) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for _ in range(2):  # the first pass races, the second hits
+            for start, stop, xb in SnpBlockStreamer(X, 32, device=cuda):
+                np.testing.assert_array_equal(xb.cpu().numpy(),
+                                              host[:, start:stop])
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        assert len(cache) == 20
+        assert cache.nbytes == cache.entry_bytes() \
+            == 20 * SnpBlockStreamer(X, 32).block_bytes
+    finally:
+        sys.setswitchinterval(old)
+        streaming.clear_device_block_cache()
 
 
 @pytest.mark.parametrize("flow", list(FLOWS))

@@ -135,8 +135,25 @@ def test_fused_builder_on_cpu_matches_jax_unfused(inputs, lam_key):
 
 
 def test_complement_is_refused(inputs):
+    """A complement whose per-SNP residuals do not match the block is
+    refused (one row would broadcast silently); a matching one is folded
+    in: with zero residuals it adds n_comp * w_c^k to the weight sums."""
     _, T = _both(inputs, "float64")
     tp = tg.pair_products(T["shared"])
-    with pytest.raises(NotImplementedError):
-        tg.grams_per_snp_lambda(T["lam"], T["ev"], T["shared"], tp, T["v"],
-                                T["v"] ** 2, (1,), comp=object())
+    B, s = T["v"].shape[1], T["shared"].shape[1]
+    args = (T["lam"], T["ev"], T["shared"], tp, T["v"], T["v"] ** 2, (1, 2))
+
+    def comp(rows):
+        z = torch.zeros((), dtype=torch.float64)
+        return tg.GramComplement(z + 0.5, 7, torch.zeros(s, s, dtype=z.dtype),
+                                 torch.zeros(rows, s, dtype=z.dtype),
+                                 torch.zeros(rows, dtype=z.dtype))
+
+    with pytest.raises(ValueError, match="residuals of 1 SNPs"):
+        tg.grams_per_snp_lambda(*args, comp=comp(1))
+    (A1, A2), sums = tg.grams_per_snp_lambda(*args, comp=comp(B))
+    (B1, B2), ref = tg.grams_per_snp_lambda(*args)
+    assert torch.equal(A1, B1) and torch.equal(A2, B2)
+    wc = 1.0 / (T["lam"] * 0.5 + 1.0)
+    torch.testing.assert_close(sums.sum_d, ref.sum_d + 7 * wc)
+    torch.testing.assert_close(sums.sum_d2, ref.sum_d2 + 7 * wc * wc)

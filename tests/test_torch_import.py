@@ -23,10 +23,13 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "pygemma_tpu_torch", "pygemma_tpu_torch.api", "pygemma_tpu_torch.config",
     "pygemma_tpu_torch.convert", "pygemma_tpu_torch.sim",
+    "pygemma_tpu_torch.device",
     "pygemma_tpu_torch.core.assoc", "pygemma_tpu_torch.core.eigen",
-    "pygemma_tpu_torch.core.grams", "pygemma_tpu_torch.core.reml",
-    "pygemma_tpu_torch.core.solver", "pygemma_tpu_torch.io.streaming",
-    "pygemma_tpu_torch.ops.gram_kernel",
+    "pygemma_tpu_torch.core.grams", "pygemma_tpu_torch.core.lowrank",
+    "pygemma_tpu_torch.core.reml", "pygemma_tpu_torch.core.solver",
+    "pygemma_tpu_torch.io.packed", "pygemma_tpu_torch.io.plink",
+    "pygemma_tpu_torch.io.quantized", "pygemma_tpu_torch.io.rawbin",
+    "pygemma_tpu_torch.io.streaming", "pygemma_tpu_torch.ops.gram_kernel",
     "pygemma_tpu_torch.utils.checkpoint", "pygemma_tpu_torch.utils.logging",
 ]
 
@@ -135,25 +138,31 @@ def test_entry_points_refuse_tf32(monkeypatch):
         torch.set_float32_matmul_precision("highest")
 
 
-class LowRankKinship:  # stands in for pygemma_tpu.core.lowrank's class
-    pass
-
-
-class QuantizedMatrix:
-    shape = (12, 3)
-
-
-@pytest.mark.parametrize("case", ["lowrank", "quantized", "mesh", "dc"])
+@pytest.mark.parametrize("case",
+                         ["lowrank", "quantized", "packed", "mesh", "dc"])
 def test_unported_inputs_raise(case):
+    """The JAX package's own matrix and kinship classes are refused with a
+    TypeError that names the converter; what the port does not cover yet
+    raises NotImplementedError."""
+    from pygemma_tpu.core.lowrank import LowRankKinship
+    from pygemma_tpu.io.packed import PackedMatrix
+    from pygemma_tpu.io.quantized import QuantizedMatrix
+
     y, X, W, K = _tiny()
     kw = {}
+    err, match = TypeError, "pygemma_tpu_torch.convert.from_jax"
+    codes = np.random.default_rng(0).integers(0, 3, size=X.shape)
     if case == "lowrank":
-        K = LowRankKinship()
+        K = LowRankKinship(X[:, :2], eps=1e-3)
     elif case == "quantized":
-        X = QuantizedMatrix()
-    elif case == "mesh":
-        kw["mesh"] = object()
+        X = QuantizedMatrix.from_dosages(codes.astype(np.int8))
+    elif case == "packed":
+        X = PackedMatrix.from_codes(codes.astype(np.uint8))
     else:
-        kw["config"] = tcfg.GwasConfig(eigh_backend="dc")
-    with pytest.raises(NotImplementedError):
+        err, match = NotImplementedError, None
+        if case == "mesh":
+            kw["mesh"] = object()
+        else:
+            kw["config"] = tcfg.GwasConfig(eigh_backend="dc")
+    with pytest.raises(err, match=match):
         pt.pygemma(y, X, W, K, device="cpu", **kw)
