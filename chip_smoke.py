@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. environment: torch/CUDA versions, the card's name and power limit, and
    the full-float32 matmul settings the scan requires;
-2. build: the hand-written kernel (``csrc/gram_kernel.cu``) with nvcc;
+2. build: the hand-written kernel (``csrc/gram_kernel.cu``) with nvcc and
+   the host .bed decoder (``native/bed_reader.cpp``) with g++, at once;
 3. kernel parity: ``fused_grams`` through the kernel against its plain
    PyTorch version on the card at the main path's shapes;
 4. small end to end: the port's ``pygemma`` on the card in float32 against
@@ -33,16 +34,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel);
 7. kernel times at both paths' shapes: the kernel's device time per call
    (torch.profiler), its wall time per call and the plain version's wall
-   time.  Phases 5 and 6 time their scans before any profiler runs,
+   time.  Phases 5, 6, 9 and 10 time their scans before any profiler runs,
    because the profiler, once run, slows every later launch from the host;
 8. one JSON line per kernel, and a last line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``;
+9. (run right after phase 5, on its cohort) the batched multi-phenotype
+   scan, bench.py:401-423: y and three more phenotypes built as there, one
+   block to warm, then all four over p = 100,000 in one call, with the
+   kernel's launches, the top-space rotations, host syncs and peak device
+   memory counted; its phenotype-0 rows held to phase 5's table, and its
+   first block to the looped scan of the same four phenotypes (forced by
+   run_dir);
+10. (then) the command line on a PLINK cohort of n = 10,000 x p = 50,000
+   written from codes drawn and packed on the card: ``python -m
+   pygemma_tpu_torch run`` as a subprocess, the GRM built on the card by
+   ``kinship_blocked``, four phenotypes to a TSV, then phenotype 0 with
+   Wald/LRT/score to GEMMA's .assoc.txt; the native .bed decode against
+   NumPy's, the GRM against float64 NumPy, and both runs' tables, with
+   each stage's time from the CLI's stage log.
 
 It exits non-zero without printing a result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
 import os
 import subprocess
@@ -69,6 +85,9 @@ PARITY_RTOL = PARITY_ATOL = 1e-4  # beyond the float32 plain version's error
 SMALL_DLOGP = 0.05  # the JAX package's float32 contract vs the oracle
 CARD_CPU_RTOL = 1e-6  # float64 card vs float64 CPU
 OFF_DLOGP, OFF_BETA_RTOL = 0.05, 5e-3  # kernel on vs off at full width
+K_PHENOS = 4  # bench.py's multi-phenotype step (PYGEMMA_BENCH_PHENOS)
+GRM_CHECK, GRM_RTOL = 512, 1e-5  # K[:512, :512] against float64 NumPy
+CLI_TIMEOUT = 900  # seconds for one CLI subprocess
 
 
 def card_line() -> str:
@@ -246,7 +265,9 @@ def table_close_dlogp(got, ref, col, limit):
     a, b = got[col].to_numpy(), ref[col].to_numpy()
     check(np.array_equal(np.isnan(a), np.isnan(b)), f"{col}: NaN rows differ")
     ok = ~np.isnan(b)
-    d = float(np.max(np.abs(np.log10(a[ok]) - np.log10(b[ok]))))
+    # p below 1e-300 (an underflow to 0 for a strong hit) counts as 1e-300
+    a, b = np.maximum(a[ok], 1e-300), np.maximum(b[ok], 1e-300)
+    d = float(np.max(np.abs(np.log10(a) - np.log10(b))))
     check(d < limit, f"{col}: max |d log10 p| {d:.3e} >= {limit}")
     return d
 
@@ -608,8 +629,317 @@ def phase_large(pt, gk, solver, tmp):
                   packed_bytes_per_block=block_bytes, finite_p=finite,
                   on_off_dlogp=d_off, on_off_vs_float64=errs,
                   explicit_implicit_dlogp=d_exp)
-    return record, (y, X.cols(0, PROFILE_BLOCKS_LARGE * BLOCK_LARGE), W, lrk,
-                    cfg)
+    return record, dict(y=y, X=X, W=W, lrk=lrk, cfg=cfg, table=df,
+                        head=head, f64_head=f64)
+
+
+def table_diffs(got, ref, what, se_col="se_beta", hold_beta=True):
+    """Two float32 tables of the same scan that differ only in rounding
+    (a batched against a looped scan, one rotation of Y against
+    another): NaN rows equal and |d log10 p_wald| < OFF_DLOGP; with
+    ``hold_beta``, also |d beta| <= OFF_BETA_RTOL (|beta| + se), i.e.
+    within half a percent of beta's own standard error where beta sits
+    near 0.  Returns (max |d log10 p|, max |d beta| / (|beta| + se), the
+    number of SNPs beyond OFF_BETA_RTOL)."""
+    import numpy as np
+
+    d = table_close_dlogp(got, ref, "p_wald", OFF_DLOGP)
+    a, b = got["beta"].to_numpy(), ref["beta"].to_numpy()
+    se = ref[se_col].to_numpy()
+    ok = ~np.isnan(b)
+    rel = np.abs(a[ok] - b[ok]) / (np.abs(b[ok]) + se[ok])
+    over = int((rel > OFF_BETA_RTOL).sum())
+    check(not (hold_beta and over),
+          f"{what}: beta off by {rel.max():.3e} of |beta| + se")
+    return d, float(rel.max()), over
+
+
+def multi_phenotypes(y, X):
+    """bench.py:408-412: y and K_PHENOS - 1 phenotypes driven by the mean of
+    SNP slices 64 (i+1) .. 64 (i+2)."""
+    import numpy as np
+
+    cols = [y]
+    for i in range(K_PHENOS - 1):
+        sl = np.asarray(X[:, 64 * (i + 1):64 * (i + 1) + 64])
+        cols.append((0.2 * sl.mean(1) * 8.0
+                     + np.random.default_rng(i + 2).standard_normal(X.shape[0])
+                     ).astype(np.float32))
+    return np.column_stack(cols)
+
+
+def phase_multi(pt, gk, solver, ctx, tmp):
+    """Phase 9: the batched k = 4 scan on the large-GWAS path."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from pygemma_tpu_torch import api
+
+    y, X, W, lrk, cfg = (ctx[k] for k in ("y", "X", "W", "lrk", "cfg"))
+    Yk = multi_phenotypes(y, X)
+    n_blocks = -(-P_LARGE // BLOCK_LARGE)
+    first = X.cols(0, BLOCK_LARGE)
+    t0 = time.time()
+    pt.pygemma(Yk, first, W, lrk, config=cfg)  # warm: the basis, one block
+    warm_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.fused_grams.launches = 0
+    solver.host_value.count = 0
+    api._rotate_top.count = 0
+    t0 = time.time()
+    dfk = pt.pygemma(Yk, X, W, lrk, config=cfg)  # the path's run
+    multi_s = time.time() - t0
+    launches = gk.fused_grams.launches
+    rotations = api._rotate_top.count
+    syncs = solver.host_value.count
+    peak = torch.cuda.max_memory_allocated()
+    check(launches > 0, "the kernel was never launched on the batched path")
+    check(rotations == n_blocks,
+          f"{rotations} top-space rotations for {n_blocks} blocks")
+    check(len(dfk) == K_PHENOS * P_LARGE, "wrong number of table rows")
+    finite = float(np.isfinite(dfk["p_wald"].to_numpy()).mean())
+    check(finite > 0.99, f"only {finite:.4f} of p_wald is finite")
+    rate = K_PHENOS * P_LARGE / multi_s
+    print(f"multi: k={K_PHENOS} batched scan of p={P_LARGE} {multi_s:.2f} s "
+          f"= {rate:.0f} SNP-tests/s (warm-up block and basis {warm_s:.2f} "
+          f"s); kernel launches {launches} ({launches / n_blocks:.1f} per "
+          f"block); U_top'xb GEMMs {rotations} ({rotations / n_blocks:.1f} "
+          f"per block); host syncs {syncs}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; finite p_wald {finite:.4f}", flush=True)
+
+    # phenotype 0 against phase 5's single-phenotype table: every row, and
+    # the first block held to phase 5's float64 scan of it
+    p0 = dfk[dfk["pheno"] == 0].drop(columns="pheno").reset_index(drop=True)
+    d0, b0, _ = table_diffs(p0, ctx["table"], "pheno 0 against phase 5")
+    errs = held_to_float64(p0.iloc[:BLOCK_LARGE], ctx["head"],
+                           ctx["f64_head"], ("beta", "lambda"))
+    # the first block against the looped scan of the same four phenotypes
+    rotations_before = api._rotate_top.count
+    looped = pt.pygemma(Yk, first, W, lrk, config=cfg,
+                        run_dir=os.path.join(tmp, "multi_looped"))
+    looped_rot = api._rotate_top.count - rotations_before
+    check(looped_rot == K_PHENOS,
+          f"the looped block was rotated {looped_rot} times")
+    head = pd.concat([dfk.iloc[g * P_LARGE:g * P_LARGE + BLOCK_LARGE]
+                      for g in range(K_PHENOS)], ignore_index=True)
+    d1, b1, _ = table_diffs(head, looped.reset_index(drop=True),
+                            "first block batched against looped")
+    print(f"multi: pheno 0 against phase 5 max|dlog10 p|={d0:.3e}, beta "
+          f"{b0:.3e} of |beta|+se; first block against float64: " + "; ".join(
+              f"{col} max abs {on_e:.3e} (single {off_e:.3e})"
+              for col, (on_e, off_e, _, _) in errs.items())
+          + f"; first block batched against looped ({looped_rot} rotations) "
+          f"max|dlog10 p|={d1:.3e}, beta {b1:.3e} of |beta|+se", flush=True)
+    api._EIGEN_DEV_CACHE.clear()
+    torch.cuda.empty_cache()
+    return dict(k=K_PHENOS, launches=launches, rotations=rotations,
+                rotations_per_block=rotations / n_blocks,
+                looped_rotations_per_block=looped_rot, host_syncs=syncs,
+                scan_s=multi_s, warm_s=warm_s, snp_tests_per_s=rate,
+                peak_gib=peak / 2**30, finite_p=finite,
+                pheno0_dlogp=d0, pheno0_beta=b0, pheno0_vs_float64=errs,
+                looped_dlogp=d1, looped_beta=b1)
+
+
+def write_plink_cohort(tmp: str, seed: int = 2028):
+    """An n = N_FULL x p = P_FULL PLINK fileset: per-SNP MAF ~ U(0.05,
+    0.5), binomial(2, MAF) dosages drawn on the card, mapped to .bed codes
+    (2 -> 00, 1 -> 10, 0 -> 11) and packed there, written SNP-major; a
+    4-column phenotype TSV, each with heritability 0.3 spread over every
+    SNP (sim.simulate_gwas's polygenic recipe), phenotype 0 also carrying
+    SNP 17 with a z of about 10 at this n; a 2-column covariate file.
+    Returns (prefix, pheno path, covariate path)."""
+    import numpy as np
+    import torch
+
+    from pygemma_tpu_torch.io.bimbam import write_matrix
+    from pygemma_tpu_torch.io.plink import _MAGIC, write_bim_fam
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, p = N_FULL, P_FULL
+    prefix = os.path.join(tmp, "cohort_bed")
+    lut = torch.tensor([3, 2, 0], dtype=torch.uint8, device=dev)
+    # each phenotype's polygenic term, u = X_std b / sqrt(p) (heritability
+    # 0.3 below), summed over the blocks as they are drawn
+    u = torch.zeros(n, K_PHENOS, device=dev, dtype=torch.float64)
+    with open(prefix + ".bed", "wb") as f:
+        f.write(_MAGIC)
+        for s in range(0, p, BLOCK_LARGE):
+            b = min(BLOCK_LARGE, p - s)
+            maf = 0.05 + 0.45 * torch.rand(b, device=dev, generator=g)
+            dose = sum((torch.rand(n, b, device=dev, generator=g) < maf).to(
+                torch.uint8) for _ in range(2))
+            xs = dose.double()
+            xs = (xs - xs.mean(0)) / torch.clamp_min(xs.std(0), 1e-6)
+            if s == 0:
+                x17 = xs[:, 17].clone()
+            u += xs @ torch.randn(b, K_PHENOS, device=dev, generator=g,
+                                  dtype=torch.float64)
+            f.write(pack_on_card(lut[dose.long()]).T.contiguous()
+                    .cpu().numpy().tobytes())
+    write_bim_fam(prefix, n, p)
+    e = torch.randn(n, K_PHENOS, device=dev, generator=g, dtype=torch.float64)
+    Y = 0.3 ** 0.5 * u / u.std(0) + 0.7 ** 0.5 * e / e.std(0)
+    Y[:, 0] += 0.1 * x17
+    pheno = os.path.join(tmp, "pheno.tsv")
+    with open(pheno, "w") as f:
+        f.write("\t".join(f"y{i}" for i in range(K_PHENOS)) + "\n")
+        np.savetxt(f, Y.cpu().numpy(), fmt="%.8g", delimiter="\t")
+    covar = os.path.join(tmp, "covar.txt")
+    write_matrix(covar, torch.randn(n, 2, device=dev, generator=g,
+                                    dtype=torch.float64).cpu().numpy())
+    return prefix, pheno, covar
+
+
+def run_cli(args, label):
+    """``python -m pygemma_tpu_torch run ...`` as a subprocess from the
+    checkout; returns (seconds, stage -> seconds, kernel launches)."""
+    import re
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "pygemma_tpu_torch", "run",
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT)
+    wall = time.time() - t0
+    check(proc.returncode == 0,
+          f"CLI {label} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    stages = {}
+    for line in proc.stderr.splitlines():
+        m = re.fullmatch(r"(.+) - ([0-9.]+) s", line.strip())
+        if m:
+            stages[m.group(1)] = stages.get(m.group(1), 0.0) + float(
+                m.group(2))
+    m = re.search(r"fused Gram kernel launches (\d+)", proc.stderr)
+    check(m is not None, f"CLI {label}: no launch count in its log")
+    return wall, stages, int(m.group(1))
+
+
+def startup_seconds():
+    """What a CLI process spends before its first stage: (wall seconds of
+    a process that imports the command line and torch and makes the CUDA
+    context, and the seconds of that inside the interpreter)."""
+    code = ("import time; t = time.time(); import torch, "
+            "pygemma_tpu_torch.__main__; torch.zeros(1, device='cuda'); "
+            "torch.cuda.synchronize(); print(time.time() - t)")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"CLI start-up probe: {proc.stderr[-2000:]}")
+    return time.time() - t0, float(proc.stdout.split()[-1])
+
+
+def stage_summary(stages):
+    """The CLI's stage log as read, GRM, eigh, scan (null fits, rotation of
+    W and Y, the association scan) and write seconds."""
+    out = {"read": 0.0, "grm": 0.0, "eigh": 0.0, "scan": 0.0, "write": 0.0}
+    for name, sec in stages.items():
+        key = ("read" if name.startswith("read") else
+               "grm" if name.startswith("kinship") else
+               "eigh" if name.startswith("eigendecomposition") else
+               "write" if name.startswith("write") else "scan")
+        out[key] += sec
+    return out
+
+
+def phase_cli(tmp):
+    """Phase 10: the command line on a PLINK cohort at the dense shape."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from pygemma_tpu_torch.io.kinship import kinship_blocked
+    from pygemma_tpu_torch.io.plink import read_bed
+
+    t0 = time.time()
+    prefix, pheno, covar = write_plink_cohort(tmp)
+    mb = os.path.getsize(prefix + ".bed") / 2**20
+    print(f"cli: PLINK cohort n={N_FULL} p={P_FULL} drawn on the card and "
+          f"written ({mb:.0f} MiB) in {time.time() - t0:.1f} s", flush=True)
+
+    # the native decode against NumPy's; the GRM against float64 NumPy
+    sl = range(BED_SNPS)
+    nat = read_bed(prefix, snp_indices=sl).X
+    check(np.array_equal(nat, read_bed(prefix, snp_indices=sl,
+                                       use_native=False).X),
+          "native .bed decode differs from the NumPy decode")
+    t0 = time.time()
+    X = read_bed(prefix).X
+    read_s = time.time() - t0
+    K = kinship_blocked(X, device="cuda")[:GRM_CHECK, :GRM_CHECK]
+    mu = X.mean(0, dtype=np.float64)
+    Xc = X[:GRM_CHECK].astype(np.float64) - mu
+    K64 = Xc @ Xc.T / P_FULL
+    # entries near 0 need the absolute term: 1e-5 of the diagonal's scale
+    grm_err = float(np.max(np.abs(K - K64) / (np.abs(K64)
+                                              + np.abs(K64).max())))
+    check(np.allclose(K, K64, rtol=GRM_RTOL,
+                      atol=GRM_RTOL * np.abs(K64).max()),
+          f"GRM against float64: max rel {grm_err:.3e}")
+    del X, Xc, K, K64
+    torch.cuda.empty_cache()
+    print(f"cli: native decode of {BED_SNPS} SNPs bit-identical to NumPy's; "
+          f"full decode {read_s:.2f} s; K[:{GRM_CHECK}, :{GRM_CHECK}] against "
+          f"float64 max |d| / (|K| + max|K|) {grm_err:.3e}", flush=True)
+
+    start_wall, start_in = startup_seconds()
+    print(f"cli: a process that imports the CLI and torch and makes the CUDA "
+          f"context takes {start_wall:.2f} s ({start_in:.2f} s of it after "
+          "the interpreter starts)", flush=True)
+    out1 = os.path.join(tmp, "assoc.tsv")
+    common = ["--bfile", prefix, "--pheno", pheno, "--covar", covar,
+              "--add-intercept", "--gk", "1"]
+    wall1, st1, launches1 = run_cli(common + ["--out", out1], "run 1")
+    s1 = stage_summary(st1)
+    print(f"cli: run 1 (k={K_PHENOS}, TSV): {wall1:.2f} s wall; " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in s1.items())
+        + f"; kernel launches {launches1}", flush=True)
+    out2 = os.path.join(tmp, "pheno0.assoc.txt")
+    wall2, st2, launches2 = run_cli(
+        common + ["--pheno-col", "0", "--tests", "wald,lrt,score",
+                  "--out-format", "gemma", "--out", out2], "run 2")
+    s2 = stage_summary(st2)
+    print(f"cli: run 2 (pheno 0, wald+lrt+score, GEMMA): {wall2:.2f} s wall; "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in s2.items())
+          + f"; kernel launches {launches2}", flush=True)
+    check(launches1 > 0 and launches2 > 0,
+          f"the CLI runs launched the kernel {launches1} and {launches2} "
+          "times")
+
+    t1 = pd.read_csv(out1, sep="\t")
+    check(len(t1) == K_PHENOS * P_FULL, f"run 1 has {len(t1)} rows")
+    finite = float(np.isfinite(t1["p_wald"].to_numpy()).mean())
+    check(finite >= 0.99, f"run 1: only {finite:.4f} of p_wald is finite")
+    t2 = pd.read_csv(out2, sep="\t")
+    check(list(t2.columns) == [
+        "chr", "rs", "ps", "n_miss", "allele1", "allele0", "af", "beta",
+        "se", "logl_H1", "l_remle", "l_mle", "p_wald", "p_lrt", "p_score"],
+        f"run 2's GEMMA columns: {list(t2.columns)}")
+    check(len(t2) == P_FULL and bool((t2["n_miss"] == -9).all()),
+          "run 2: wrong rows or n_miss is not GEMMA's -9")
+    for col in ("p_lrt", "p_score"):
+        fin = float(np.isfinite(t2[col].to_numpy()).mean())
+        check(fin >= 0.99, f"run 2: only {fin:.4f} of {col} is finite")
+    p0 = t1[t1["pheno"] == 0].reset_index(drop=True)
+    check(list(t2["rs"]) == list(p0["SNPs"]), "run 2's SNPs differ")
+    # p_wald is held; beta is reported: where a SNP's REML optimum sits on
+    # a flat ridge, rounding y differently (one rotation of (n, 4) against
+    # one of (n, 1)) can move its lambda, and beta with it
+    d, b, over = table_diffs(t2, p0, "run 2 against run 1's pheno 0",
+                             hold_beta=False)
+    hit = int(p0["p_wald"].idxmin())
+    print(f"cli: run 1 {len(t1)} rows, finite p_wald {finite:.4f}, pheno 0 "
+          f"top hit rs{hit}; run 2 against run 1's pheno 0 max|dlog10 p|="
+          f"{d:.3e}; beta max {b:.3e} of |beta|+se, {over} of {P_FULL} SNPs "
+          f"beyond {OFF_BETA_RTOL}", flush=True)
+    return dict(launches_run1=launches1, launches_run2=launches2,
+                startup_wall_s=start_wall, startup_in_process_s=start_in,
+                wall_run1_s=wall1, wall_run2_s=wall2, stages_run1=s1,
+                stages_run2=s2, finite_p=finite, grm_err=grm_err,
+                run2_vs_run1_dlogp=d, run2_vs_run1_beta=b,
+                run2_vs_run1_beta_over=over, top_hit=hit)
 
 
 def phase_full(pt, gk, solver):
@@ -742,6 +1072,7 @@ def main() -> int:
     import pygemma_tpu_torch as pt
     from pygemma_tpu_torch.core import solver
     from pygemma_tpu_torch.device import check_matmul_precision
+    from pygemma_tpu_torch.native import bed_native
     from pygemma_tpu_torch.ops import gram_kernel as gk
 
     # 1. environment
@@ -752,11 +1083,16 @@ def main() -> int:
     check_matmul_precision()
     print("matmul: allow_tf32=False, float32 precision 'highest'", flush=True)
 
-    # 2. build
+    # 2. build: the kernel (nvcc) and the host .bed decoder (g++) at once
     t0 = time.time()
-    gk.build(verbose=True)
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(gk.build, True), pool.submit(bed_native.build)]
+        for b in builds:
+            b.result()
     gk._load()
-    print(f"build: {gk.SOURCE.relative_to(ROOT)} in {time.time() - t0:.1f} s",
+    bed_native._load()
+    print(f"build: {gk.SOURCE.relative_to(ROOT)} and "
+          f"{bed_native.SOURCE.relative_to(ROOT)} in {time.time() - t0:.1f} s",
           flush=True)
 
     # 3. kernel parity
@@ -767,18 +1103,25 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 5. the large-GWAS path (implicit low-rank kinship, 2-bit cohort)
-        large, large_inputs = phase_large(pt, gk, solver, tmp)
+        large, ctx = phase_large(pt, gk, solver, tmp)
+
+        # 9. the batched multi-phenotype scan on the same cohort
+        multi = phase_multi(pt, gk, solver, ctx, tmp)
+
+        # 10. the command line on a PLINK cohort
+        cli = phase_cli(tmp)
 
         # 6. full width, dense K (its profile comes after every timed scan)
         full = phase_full(pt, gk, solver)
 
         # where the large path's warm blocks spend their time
-        y, X, W, lrk, cfg = large_inputs
-        large["profile"] = profile_blocks(pt, gk, y, X, W, lrk, cfg,
-                                          BLOCK_LARGE)
+        large["profile"] = profile_blocks(
+            pt, gk, ctx["y"], ctx["X"].cols(0, PROFILE_BLOCKS_LARGE
+                                            * BLOCK_LARGE),
+            ctx["W"], ctx["lrk"], ctx["cfg"], BLOCK_LARGE)
         print(json.dumps({"profile_large": large["profile"]}), flush=True)
         pt.api._EIGEN_DEV_CACHE.clear()
-        del large_inputs, y, X, W, lrk
+        del ctx
 
     # 7. kernel times
     rows, implicit_row = phase_kernel_times(gk)
@@ -790,11 +1133,19 @@ def main() -> int:
         "route": "cuda",
         "source": "pygemma_tpu_torch/csrc/gram_kernel.cu",
         "replaces": "pygemma_tpu/ops/gram_kernel.py:87",
-        "launches": full["launches"] + large["launches"],
+        "launches": (full["launches"] + large["launches"]
+                     + multi["launches"] + cli["launches_run1"]
+                     + cli["launches_run2"]),
         "launches_by_path": {
             f"dense n={N_FULL} p={P_FULL}": full["launches"],
             f"implicit n={N_LARGE} p={P_LARGE} p_k={PK_LARGE}":
-                large["launches"]},
+                large["launches"],
+            f"implicit batched k={K_PHENOS} n={N_LARGE} p={P_LARGE} "
+            f"p_k={PK_LARGE}": multi["launches"],
+            f"cli dense k={K_PHENOS} n={N_FULL} p={P_FULL}":
+                cli["launches_run1"],
+            f"cli dense pheno 0 wald+lrt+score n={N_FULL} p={P_FULL}":
+                cli["launches_run2"]},
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -812,6 +1163,8 @@ def main() -> int:
     }]}
     print(json.dumps({"large_implicit": large}), flush=True)
     print(json.dumps({"full_width": full}), flush=True)
+    print(json.dumps({"multi_phenotype": multi}), flush=True)
+    print(json.dumps({"cli": cli}), flush=True)
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ Genotypes come as a float array or streamed as 2-bit or int8 codes
 on the device.  The kinship is dense (or precomputed eigenvalues with
 ``eigen=False``) or a :class:`~pygemma_tpu_torch.core.lowrank.LowRankKinship`,
 scanned by default in its top eigenspace with the complement folded in
-implicitly.  Phenotypes are scanned one column at a time.  Device meshes and
-the divide-and-conquer eigh raise ``NotImplementedError``.
+implicitly.  With three or more phenotypes (and no ``run_dir``) each SNP
+block streams once and is rotated, or prepared in the top space, once for
+all of them; otherwise phenotypes are scanned one column at a time.  Device
+meshes and the divide-and-conquer eigh raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,15 @@ from scipy import stats
 
 from .config import GwasConfig, from_env
 from .convert import is_jax_object
-from .core.assoc import ImplicitCtx, NullFit, assoc_block, fit_null
+from .core.assoc import (
+    ImplicitCtx,
+    ImplicitMultiCtx,
+    NullFit,
+    assoc_block,
+    assoc_block_multi,
+    fit_null,
+    fit_null_multi,
+)
 from .core.eigen import auto_eigendecompose, loading_transform, rotate
 from .core.grams import pair_products, pdot
 from .core.lowrank import (
@@ -107,6 +117,44 @@ def _fit_null(ev, W, y, cfg,
     return torch.stack([nf.lambda_reml, nf.lambda_ml, nf.loglik_ml])
 
 
+def _assoc_multi(ev, W, Y_kn, Xblock, cfg, null_stack, de,
+                 implicit_multi: Optional[ImplicitMultiCtx] = None
+                 ) -> torch.Tensor:
+    """One SNP block against k phenotypes -> one stacked (n_keys, k, B)
+    tensor (see :func:`_assoc_block`)."""
+    res = assoc_block_multi(ev, W, Y_kn, Xblock, cfg, null_stack=null_stack,
+                            de=de, implicit_multi=implicit_multi,
+                            pvalues=False)
+    return torch.stack([res[k] for k in _result_keys(cfg)])
+
+
+def _table_columns(d: dict, null_ml, tests) -> dict:
+    """Result rows by :func:`_result_keys` name -> the table's columns, with
+    the LRT statistic D = 2 (logl_H1 - logl_null) in float64 on the host."""
+    out = {"beta": d["beta"], "se_beta": d["se_beta"], "tau": d["tau"],
+           "lambda": d["lam"], "F_wald": d["F_wald"]}
+    if "lrt" in tests:
+        out["lambda_ml"] = d["lambda_ml"]
+        out["logl_H1"] = d["logl_H1"]
+        out["D_lrt"] = 2.0 * (d["logl_H1"].astype(np.float64) - null_ml)
+    if "score" in tests:
+        out["F_score"] = d["F_score"]
+    return out
+
+
+def _frame(out: dict, n: int, c: int, tests, pheno=None) -> pd.DataFrame:
+    """One phenotype's columns -> its table: host p-values, the reference's
+    column order (lmm/lmm.py:129-142), a ``pheno`` column when given."""
+    _host_pvalues(out, n, c, tests)
+    df = pd.DataFrame(out)
+    order = ["beta", "se_beta", "tau", "lambda", "F_wald", "p_wald"]
+    order += [k for k in df.columns if k not in order]
+    df = df[order]
+    if pheno is not None:
+        df["pheno"] = pheno
+    return df
+
+
 # --- implicit low-rank scan helpers (no n x n eigenbasis; see
 # core/lowrank.py::ImplicitBasis and core/grams.py::GramComplement) --------
 
@@ -138,6 +186,17 @@ def _raw_gram(shared_raw: torch.Tensor) -> torch.Tensor:
     return pdot(shared_raw.T, shared_raw)
 
 
+def _rotate_top(U_top: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """U_top' xb (p_k, B): the implicit scan's rotation of a block into the
+    top space, its largest GEMM.  ``_rotate_top.count`` counts the calls, so
+    a run can show how often each block was rotated."""
+    _rotate_top.count += 1
+    return pdot(U_top.T, xb)
+
+
+_rotate_top.count = 0
+
+
 def _implicit_prep(U_top, shared_raw, xb):
     """Per-block top-space rotation + lambda-independent raw terms.
 
@@ -145,10 +204,28 @@ def _implicit_prep(U_top, shared_raw, xb):
     n x p_k one plus an n x s raw cross GEMM: the only O(n) work the
     implicit scan does per block.
     """
-    C_x = pdot(U_top.T, xb)  # (p_k, B)
+    C_x = _rotate_top(U_top, xb)  # (p_k, B)
     vS_raw = pdot(xb.T, shared_raw)  # (B, s)
     vv_raw = torch.sum(xb * xb, dim=0)  # (B,)
     return C_x, vS_raw, vv_raw
+
+
+def _implicit_multi_once(W_raw, Y_raw):
+    """Phenotype-factored raw Gram pieces shared by the whole scan."""
+    WtW = pdot(W_raw.T, W_raw)
+    WtY = pdot(W_raw.T, Y_raw)
+    YtY = torch.sum(Y_raw * Y_raw, dim=0)
+    return WtW, WtY, YtY
+
+
+def _implicit_multi_prep(U_top, W_raw, Y_raw, xb):
+    """Per-block top-space rotation + factored raw terms (multi-pheno):
+    one rotation serves every phenotype."""
+    C_x = _rotate_top(U_top, xb)
+    XtW = pdot(xb.T, W_raw)
+    XtY = pdot(xb.T, Y_raw)
+    vv = torch.sum(xb * xb, dim=0)
+    return C_x, XtW, XtY, vv
 
 
 @contextlib.contextmanager
@@ -393,9 +470,17 @@ def pygemma(
             W_dev = to_dev(W)
             Y_dev = to_dev(Y)
 
-        frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
-                                     de, n, p, B, log, ckpt, dev, impl)
-    n_pheno = Y.shape[1]
+        n_pheno = Y.shape[1]
+        # Batched multi-phenotype scan (eQTL-style workloads; the reference
+        # runs a SLURM array per gene instead,
+        # experiments/1000G/run_pyGEMMA.sh:43-52).  run_dir resumes per
+        # phenotype, so it keeps the looped scan.
+        if n_pheno >= 3 and ckpt is None:
+            frames = _scan_phenos_batched(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
+                                          de, n, p, B, log, dev, impl)
+        else:
+            frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
+                                         de, n, p, B, log, ckpt, dev, impl)
     results_df = pd.concat(frames, ignore_index=True) if len(frames) > 1 else frames[0]
     if snps is not None:
         results_df["SNPs"] = (
@@ -420,35 +505,16 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
             with log.stage("null-model fit"):
                 null_arr = _fit_null(ev_dev, W_dev, y_dev, cfg, ictx)
 
-        cols = {k: [] for k in ("beta", "se_beta", "tau", "lambda", "F_wald")}
-        if "lrt" in cfg.tests:
-            cols["lambda_ml"] = []
-            cols["logl_H1"] = []
-            cols["D_lrt"] = []
-        if "score" in cfg.tests:
-            cols["F_score"] = []
-
         null_ml = float(null_arr[2]) if null_arr is not None else None
 
         def block_to_cols(stacked: np.ndarray, m: int) -> dict:
             """(n_keys, B) host array -> output-column dict for one block."""
-            d = dict(zip(keys, stacked))
-            blk = {
-                "beta": d["beta"][:m],
-                "se_beta": d["se_beta"][:m],
-                "tau": d["tau"][:m],
-                "lambda": d["lam"][:m],
-                "F_wald": d["F_wald"][:m],
-            }
-            if "lrt" in cfg.tests:
-                blk["lambda_ml"] = d["lambda_ml"][:m]
-                blk["logl_H1"] = d["logl_H1"][:m]
-                blk["D_lrt"] = 2.0 * (
-                    d["logl_H1"][:m].astype(np.float64) - null_ml
-                )
-            if "score" in cfg.tests:
-                blk["F_score"] = d["F_score"][:m]
-            return blk
+            return _table_columns({k: row[:m] for k, row in zip(keys, stacked)},
+                                  null_ml, cfg.tests)
+
+        # the table's column names, from an empty block
+        cols = {k: [] for k in block_to_cols(
+            np.zeros((len(keys), 0), np.float32), 0)}
 
         # Results stay on the device until the scan has been dispatched (or
         # go to a writer thread when run_dir durability is on), so no pull
@@ -500,14 +566,67 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
                 writer.shutdown()
 
         out = {k: np.concatenate(v) if v else np.array([]) for k, v in cols.items()}
-        _host_pvalues(out, n, c, cfg.tests)
-        df = pd.DataFrame(out)
-        # Column order parity with the reference (lmm/lmm.py:129-142).
-        order = ["beta", "se_beta", "tau", "lambda", "F_wald", "p_wald"]
-        order += [k for k in df.columns if k not in order]
-        df = df[order]
-        if n_pheno > 1:
-            df["pheno"] = ph
-        frames.append(df)
+        frames.append(_frame(out, n, c, cfg.tests,
+                             ph if n_pheno > 1 else None))
 
+    return frames
+
+
+def _scan_phenos_batched(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
+                         log, dev, impl: Optional[_ImplicitScan] = None):
+    """All phenotypes per block: each block streams once and is rotated
+    (dense K) or prepared in the top space (implicit K) once, then the k
+    phenotypes run on it, each with the fused kernel where ``_use_fused``
+    takes it.  Results stay on the device until every block is dispatched.
+
+    With ``impl`` the per-phenotype raw Gram terms factor into shared
+    W-blocks plus one cross column each (:class:`ImplicitMultiCtx`).
+
+    The block is the looped scan's ``B``: the JAX package shrinks it by k
+    on its vmapped path to bound (k, B, n) temporaries, which a loop over
+    phenotypes never makes; the table does not depend on the block size.
+    """
+    n_pheno = Y_dev.shape[1]
+    c = W_dev.shape[1]
+    Y_kn = Y_dev.T  # (k, n), or (k, p_k) on the implicit path
+    base = None
+    if impl is not None:
+        WtW, WtY, YtY = _implicit_multi_once(impl.W_raw, impl.Y_raw)
+        eps = torch.tensor(impl.eps, dtype=WtW.dtype, device=WtW.device)
+        # the per-block fields are filled per block; the null fit ignores them
+        base = ImplicitMultiCtx(eps, impl.n_total, WtW, WtY, YtY,
+                                WtW.new_zeros((1, c)),
+                                WtW.new_zeros((1, n_pheno)),
+                                WtW.new_zeros((1,)))
+    null_stack = None
+    if ("lrt" in cfg.tests) or ("score" in cfg.tests):
+        with log.stage(f"null-model fits ({n_pheno} phenotypes)"):
+            null_stack = fit_null_multi(ev_dev, W_dev, Y_kn, cfg, base)
+
+    keys = _result_keys(cfg)
+    pending = []  # (m, stacked (n_keys, k, B) device tensor)
+    with log.stage(
+            f"association scan ({p} SNPs x {n_pheno} phenotypes, n={n})"):
+        streamer = SnpBlockStreamer(X, B, dtype=X.dtype, device=dev)
+        for start, stop, xb_dev in log.track(
+                streamer, "Testing SNPs...", total=-(-p // B)):
+            ictx = None
+            if impl is not None:
+                xb_dev, XtW, XtY, vv = _implicit_multi_prep(
+                    impl.U_top, impl.W_raw, impl.Y_raw, xb_dev)
+                ictx = base._replace(XtW=XtW, XtY=XtY, vv=vv)
+            elif U_dev is not None:
+                xb_dev = rotate(U_dev, xb_dev)
+            pending.append((stop - start, _assoc_multi(
+                ev_dev, W_dev, Y_kn, xb_dev, cfg, null_stack, de, ictx)))
+        host = [(m, stacked.cpu().numpy()) for m, stacked in pending]
+    full = {k: np.concatenate([h[i, :, :m] for m, h in host], axis=1)
+            for i, k in enumerate(keys)}  # (k, p) each
+    null_host = null_stack.cpu().numpy() if null_stack is not None else None
+    frames = []
+    for ph in range(n_pheno):
+        null_ml = float(null_host[ph, 2]) if null_host is not None else None
+        out = _table_columns({k: v[ph] for k, v in full.items()}, null_ml,
+                             cfg.tests)
+        frames.append(_frame(out, n, c, cfg.tests, ph))
     return frames

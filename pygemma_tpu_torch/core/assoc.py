@@ -63,6 +63,39 @@ class ImplicitCtx(NamedTuple):
     vv_raw: torch.Tensor  # (B,)
 
 
+class ImplicitMultiCtx(NamedTuple):
+    """Implicit low-rank context shared by a multi-phenotype block.
+
+    The raw Gram pieces factor over phenotypes -- W-blocks are shared and
+    only the y column varies -- so the batched scan carries them split and
+    assembles a per-phenotype :class:`ImplicitCtx` for each phenotype.
+    """
+
+    eps: torch.Tensor  # ()
+    n_total: int
+    WtW: torch.Tensor  # (c, c) raw covariate Gram
+    WtY: torch.Tensor  # (c, k) raw covariate x phenotype cross terms
+    YtY: torch.Tensor  # (k,)   raw phenotype self terms
+    XtW: torch.Tensor  # (B, c) raw genotype x covariate cross terms
+    XtY: torch.Tensor  # (B, k) raw genotype x phenotype cross terms
+    vv: torch.Tensor  # (B,)   raw genotype self terms
+
+
+def _raw_shared_gram(WtW: torch.Tensor, wty: torch.Tensor,
+                     yty: torch.Tensor) -> torch.Tensor:
+    """The (c+1, c+1) raw Gram of [W, y] from its factored pieces."""
+    top = torch.cat([WtW, wty[:, None]], dim=1)
+    bottom = torch.cat([wty, yty[None]])[None]
+    return torch.cat([top, bottom], dim=0)
+
+
+def _implicit_for_pheno(m: ImplicitMultiCtx, g: int) -> ImplicitCtx:
+    """Assemble phenotype ``g``'s ImplicitCtx from the factored raw terms."""
+    S_raw = _raw_shared_gram(m.WtW, m.WtY[:, g], m.YtY[g])
+    vS_raw = torch.cat([m.XtW, m.XtY[:, g:g + 1]], dim=1)
+    return ImplicitCtx(m.eps, m.n_total, S_raw, vS_raw, m.vv)
+
+
 def _implicit_complement(implicit: ImplicitCtx, shared_c: torch.Tensor,
                          C_x: torch.Tensor) -> GramComplement:
     """Residual Grams R = T'T - C'C over columns [shared | x].  Exact in
@@ -258,3 +291,58 @@ def assoc_block(
         lambda_ml=lam_ml,
         logl_H1=logl_H1,
     )
+
+
+def assoc_block_multi(
+    ev: torch.Tensor,  # (n,)
+    W: torch.Tensor,  # (n, c)
+    Y_kn: torch.Tensor,  # (k, n) rotated phenotypes (e.g. genes in an eQTL scan)
+    X: torch.Tensor,  # (n, B) rotated genotype block, shared by all k
+    cfg: GwasConfig,
+    null_stack: Optional[torch.Tensor] = None,  # (k, 3) stacked NullFit rows
+    de: bool = False,
+    implicit_multi: Optional[ImplicitMultiCtx] = None,
+    pvalues: bool = True,
+) -> dict:
+    """Run :func:`assoc_block` for every phenotype against one block.
+
+    The block is streamed and rotated (or, with ``implicit_multi``,
+    prepared) once by the caller for all k phenotypes -- the answer to the
+    reference's per-gene SLURM array (experiments/1000G/run_pyGEMMA.sh:43-52).
+    Returns a dict of (k, B) tensors, one per non-None AssocResult field.
+
+    One loop over phenotypes serves every k.  The JAX package unrolls up to
+    12 phenotypes and vmaps beyond, because a Pallas kernel has no vmap
+    rule; here the fused kernel is an ordinary call, so each phenotype
+    keeps it (``_use_fused`` decides as for one phenotype) and no (k, B, n)
+    temporaries exist.
+    """
+    outs = []
+    for g in range(Y_kn.shape[0]):
+        ictx = (_implicit_for_pheno(implicit_multi, g)
+                if implicit_multi is not None else None)
+        null = NullFit(*null_stack[g]) if null_stack is not None else None
+        res = assoc_block(ev, W, Y_kn[g], X, cfg, null=null, de=de,
+                          pvalues=pvalues, implicit=ictx)
+        outs.append({k: v for k, v in res._asdict().items() if v is not None})
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def fit_null_multi(ev, W, Y_kn, cfg: GwasConfig,
+                   implicit_multi: Optional[ImplicitMultiCtx] = None
+                   ) -> torch.Tensor:
+    """:func:`fit_null` for each phenotype -> (k, 3) stacked rows
+    (lambda_reml, lambda_ml, loglik_ml)."""
+    rows = []
+    for g in range(Y_kn.shape[0]):
+        ictx = None
+        if implicit_multi is not None:
+            m = implicit_multi
+            S_raw = _raw_shared_gram(m.WtW, m.WtY[:, g], m.YtY[g])
+            # the per-SNP residual fields are unused by the null fit
+            ictx = ImplicitCtx(m.eps, m.n_total, S_raw,
+                               S_raw.new_zeros((1, S_raw.shape[0])),
+                               S_raw.new_zeros((1,)))
+        nf = fit_null(ev, W, Y_kn[g], cfg, implicit=ictx)
+        rows.append(torch.stack([nf.lambda_reml, nf.lambda_ml, nf.loglik_ml]))
+    return torch.stack(rows)

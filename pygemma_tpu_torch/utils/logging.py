@@ -1,23 +1,16 @@
-"""Stage logging with wall-time banners.
+"""Stage logging with wall-time lines.
 
-Mirrors the reference's rich-console stage logs (lmm/lmm.py:144-163) but
-degrades gracefully to plain logging when rich is unavailable.
+Mirrors the reference's stage logs (lmm/lmm.py:144-163): with ``verbose``
+on, each stage ends with one plain line on stderr, ``<stage> - <seconds> s``,
+which the command line's users and scripts can read; the SNP loop shows a
+rich progress bar when rich is installed.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
+import sys
 import time
-
-try:  # rich is present in the reference's dependency set; optional here
-    from rich.console import Console
-
-    _console = Console()
-except Exception:  # pragma: no cover
-    _console = None
-
-logger = logging.getLogger("pygemma_tpu_torch")
 
 
 class StageLogger:
@@ -25,12 +18,8 @@ class StageLogger:
         self.verbose = verbose
 
     def log(self, msg: str) -> None:
-        if self.verbose <= 0:
-            return
-        if _console is not None:
-            _console.log(msg)
-        else:
-            logger.info(msg)
+        if self.verbose > 0:
+            print(msg, file=sys.stderr, flush=True)
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -38,16 +27,16 @@ class StageLogger:
         try:
             yield
         finally:
-            self.log(f"[green]{name} - {round(time.time() - start, 3)} s")
+            self.log(f"{name} - {time.time() - start:.3f} s")
 
     def track(self, iterable, description: str = "", total=None):
         """Progress bar over an iterable (reference rich.progress.track SNP
-        bar, lmm/lmm.py:395); plain pass-through when quiet."""
+        bar, lmm/lmm.py:395); plain pass-through when quiet or without
+        rich."""
         if self.verbose <= 0:
             return iterable
         try:
             from rich.progress import track as _track
-
-            return _track(iterable, description=description, total=total)
-        except Exception:  # pragma: no cover
+        except ImportError:
             return iterable
+        return _track(iterable, description=description, total=total)

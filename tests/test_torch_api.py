@@ -89,8 +89,8 @@ def test_fused_switch_on_cpu_gives_the_same_table(data):
 
 
 def test_multi_phenotype_and_snp_names():
-    """k=3 phenotypes: the JAX package takes its batched route, the port
-    scans column by column; the tables agree."""
+    """k=3 phenotypes: both packages take their batched route; the tables
+    agree."""
     sim = simulate_gwas(n=150, p=20, c=2, seed=3, dtype=np.float64)
     rng = np.random.default_rng(0)
     Y = np.c_[sim.Y, rng.normal(size=(150, 2))]

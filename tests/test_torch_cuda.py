@@ -1,7 +1,8 @@
 """Cases that need a CUDA card: the hand-written kernel against its plain
 version (also at the implicit low-rank path's shape), the pinned-buffer
 streamer for float, 2-bit and int8 genotypes, the device block cache under a
-racing prefill, and the scan on the card against the scan on the CPU.
+racing prefill, the scan on the card against the scan on the CPU (one
+phenotype and the batched four), the kinship GEMM, and the command line.
 
 The module imports neither jax nor pygemma_tpu, so on a machine with a card
 it runs without the JAX-configuring conftest:
@@ -195,18 +196,107 @@ def test_block_cache_with_racing_prefill(cuda, tmp_path, monkeypatch):
         streaming.clear_device_block_cache()
 
 
+def _same_table(a, b, rtol=1e-6):
+    """float64 card against float64 CPU: only the summation order
+    differs."""
+    assert list(a.columns) == list(b.columns)
+    for col in b.columns:
+        x, z = a[col].to_numpy(), b[col].to_numpy()
+        if z.dtype.kind not in "fc":
+            np.testing.assert_array_equal(x, z, err_msg=col)
+            continue
+        np.testing.assert_array_equal(np.isnan(x), np.isnan(z), err_msg=col)
+        ok = ~np.isnan(z)
+        np.testing.assert_allclose(x[ok], z[ok], rtol=rtol, atol=1e-12,
+                                   err_msg=col)
+
+
+def _close_p(a, b, col="p_wald"):
+    """float32 tables, kernel on (card) against off (CPU): |d log10 p| <
+    0.05, the JAX package's float32 contract."""
+    p, q = a[col].to_numpy(), b[col].to_numpy()
+    np.testing.assert_array_equal(np.isnan(p), np.isnan(q))
+    ok = ~np.isnan(q)
+    assert np.abs(np.log10(p[ok]) - np.log10(q[ok])).max() < 0.05
+
+
 @pytest.mark.parametrize("flow", list(FLOWS))
 def test_scan_float64_matches_cpu(data, cuda, flow):
     cfg = pt.GwasConfig(dtype="float64", snp_block=16)
     a = pt.pygemma(*data, config=cfg, device=cuda, **FLOWS[flow])
     b = pt.pygemma(*data, config=cfg, device="cpu", **FLOWS[flow])
-    assert list(a.columns) == list(b.columns)
-    for col in b.columns:
-        x, z = a[col].to_numpy(), b[col].to_numpy()
-        np.testing.assert_array_equal(np.isnan(x), np.isnan(z), err_msg=col)
-        ok = ~np.isnan(z)
-        np.testing.assert_allclose(x[ok], z[ok], rtol=1e-6, atol=1e-12,
-                                   err_msg=col)
+    _same_table(a, b)
+
+
+def _four_phenotypes(y):
+    rng = np.random.default_rng(9)
+    n = len(y)
+    return np.c_[y, 0.5 * y + rng.standard_normal(n),
+                 rng.standard_normal((n, 2))]
+
+
+def test_batched_scan_float64_matches_cpu(data, cuda):
+    """k = 4 takes the batched route on both devices."""
+    y, G, W, K = data
+    cfg = pt.GwasConfig(dtype="float64", snp_block=16,
+                        tests=("wald", "lrt", "score"))
+    Y = _four_phenotypes(y)
+    _same_table(pt.pygemma(Y, G, W, K, config=cfg, device=cuda),
+                pt.pygemma(Y, G, W, K, config=cfg, device="cpu"))
+
+
+def test_batched_implicit_runs_the_kernel_per_phenotype(data, cuda):
+    """The implicit path at k = 4 in float32: one top-space rotation a
+    block for all four phenotypes, the kernel launched for each, and the
+    table within the float32 contract of the CPU's."""
+    from pygemma_tpu_torch import api
+
+    y, G, W, _ = data
+    lrk = pt.LowRankKinship(G[:, :24], eps=1e-3)
+    cfg = pt.GwasConfig(snp_block=16)
+    Y = _four_phenotypes(y)
+    rot, k1 = api._rotate_top.count, gk.fused_grams.launches
+    a = pt.pygemma(Y, G, W, lrk, config=cfg, device=cuda)
+    blocks = -(-G.shape[1] // 16)
+    assert api._rotate_top.count - rot == blocks
+    # at least each phenotype's final Wald Grams in every block; the
+    # solver's iterations add a data-dependent number
+    assert gk.fused_grams.launches - k1 >= 4 * blocks
+    _close_p(a, pt.pygemma(Y, G, W, lrk, config=cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+def test_kinship_on_the_card_matches_cpu(cuda, standardize):
+    from pygemma_tpu_torch.io.kinship import kinship_blocked
+
+    X = np.random.default_rng(8).normal(size=(300, 1000)).astype(np.float32)
+    a = kinship_blocked(X, block=333, standardize=standardize, device=cuda)
+    b = kinship_blocked(X, block=333, standardize=standardize, device="cpu")
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
+
+
+def test_cli_on_the_card(data, cuda, tmp_path):
+    """python -m pygemma_tpu_torch run on the card (its default device)
+    against the same command on the CPU."""
+    import pandas as pd
+
+    from pygemma_tpu_torch import __main__ as cli
+    from pygemma_tpu_torch.io import bimbam, plink
+
+    y, _, W, _ = data
+    codes = np.random.default_rng(10).integers(0, 3, size=(len(y), 60))
+    plink.write_bed(str(tmp_path / "g"), codes.astype(np.float32))
+    bimbam.write_pheno(str(tmp_path / "y.txt"), y)
+    args = ["run", "--bfile", str(tmp_path / "g"), "--pheno",
+            str(tmp_path / "y.txt"), "--snp-block", "32", "--verbose", "0"]
+    before = gk.fused_grams.launches
+    cli.main(args + ["--out", str(tmp_path / "card.tsv")])
+    assert gk.fused_grams.launches > before
+    cli.main(args + ["--out", str(tmp_path / "cpu.tsv"), "--device", "cpu"])
+    a, b = (pd.read_csv(tmp_path / f, sep="\t")
+            for f in ("card.tsv", "cpu.tsv"))
+    assert len(a) == 60
+    _close_p(a, b)
 
 
 def test_scan_float32_kernel_on_matches_off(data, cuda):

@@ -31,6 +31,12 @@ PORT_MODULES = [
     "pygemma_tpu_torch.io.quantized", "pygemma_tpu_torch.io.rawbin",
     "pygemma_tpu_torch.io.streaming", "pygemma_tpu_torch.ops.gram_kernel",
     "pygemma_tpu_torch.utils.checkpoint", "pygemma_tpu_torch.utils.logging",
+    "pygemma_tpu_torch.__main__", "pygemma_tpu_torch.io",
+    "pygemma_tpu_torch.io.bimbam", "pygemma_tpu_torch.io.traw",
+    "pygemma_tpu_torch.io.gemma_format", "pygemma_tpu_torch.io.kinship",
+    "pygemma_tpu_torch.native.bed_native", "pygemma_tpu_torch.linreg",
+    "pygemma_tpu_torch.preprocess", "pygemma_tpu_torch.plotting",
+    "pygemma_tpu_torch.plotting.plot",
 ]
 
 
@@ -113,15 +119,33 @@ def _tiny():
     return rng.normal(size=n), X, np.ones((n, 1)), np.eye(n)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from pygemma_tpu_torch import __main__ as cli
+    from pygemma_tpu_torch.io import bimbam, kinship, plink
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     y, X, W, K = _tiny()
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.pygemma(y, X, W, K)
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.estimate_lambda(np.ones(12), y, W)
+    for fn in (kinship.kinship_blocked, kinship.centered_kinship,
+               kinship.standardized_kinship):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(X)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.linreg.linreg(y, X, W)
+    plink.write_bed(str(tmp_path / "g"), np.rint(np.abs(X)).clip(0, 2))
+    bimbam.write_pheno(str(tmp_path / "y.txt"), y)
+    args = ["run", "--bfile", str(tmp_path / "g"), "--pheno",
+            str(tmp_path / "y.txt"), "--out", str(tmp_path / "o.tsv")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(args)
     df = pt.pygemma(y, X, W, K, device="cpu")
     assert df.shape == (3, 6)
+    assert kinship.kinship_blocked(X, device="cpu").shape == (12, 12)
+    cli.main(args + ["--device", "cpu", "--verbose", "0"])
+    assert (tmp_path / "o.tsv").exists()
 
 
 def test_entry_points_refuse_tf32(monkeypatch):
