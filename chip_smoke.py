@@ -51,7 +51,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``kinship_blocked``, four phenotypes to a TSV, then phenotype 0 with
    Wald/LRT/score to GEMMA's .assoc.txt; the native .bed decode against
    NumPy's, the GRM against float64 NumPy, and both runs' tables, with
-   each stage's time from the CLI's stage log.
+   each stage's time from the CLI's stage log;
+11. multi-rank (``parallel/``): (a) phase 5's configuration over a mesh of
+   two ranks, processes sharing the one card over gloo, each with a
+   warm-up call then a timed one, the ranks' tables held identical and to
+   phase 5's within the float32 contract, with the basis on rank 0, its
+   broadcast, the slower rank's warm scan, K1's launches summed over the
+   ranks and each rank's peak memory; (b) the command line with ``--mesh
+   2`` and phase 10's run-2 arguments, held to run 2's table; (c) run last,
+   a one-rank NCCL mesh in this process (device-tensor broadcasts and
+   gathers) on a float64 dense fixture, held to the scan without a mesh
+   at rtol 1e-6.
 
 It exits non-zero without printing a result when no CUDA device is present.
 """
@@ -88,6 +98,10 @@ OFF_DLOGP, OFF_BETA_RTOL = 0.05, 5e-3  # kernel on vs off at full width
 K_PHENOS = 4  # bench.py's multi-phenotype step (PYGEMMA_BENCH_PHENOS)
 GRM_CHECK, GRM_RTOL = 512, 1e-5  # K[:512, :512] against float64 NumPy
 CLI_TIMEOUT = 900  # seconds for one CLI subprocess
+MESH_RANKS = 2  # phase 11: ranks sharing the one card
+MESH_DLOGP = 0.05  # the float32 contract between a mesh and one process
+# phase 11c: the one-rank NCCL mesh's float64 dense fixture
+NCCL_N, NCCL_P, NCCL_BLOCK = 1_500, 4_096, 2_048
 
 
 def card_line() -> str:
@@ -475,7 +489,8 @@ def phase_large(pt, gk, solver, tmp):
     t0 = time.time()
     prefix, X, y, W, lrk, cfg = large_inputs(tmp)
     n_blocks = -(-P_LARGE // BLOCK_LARGE)
-    block_bytes = streaming.SnpBlockStreamer(X, BLOCK_LARGE).block_bytes
+    block_bytes = streaming.SnpBlockStreamer(X, BLOCK_LARGE,
+                                             device="cuda").block_bytes
     file_mb = os.path.getsize(prefix + ".2b") / 2**20
     print(f"large: cohort n={N_LARGE} p={P_LARGE} drawn on the card and "
           f"written ({file_mb:.0f} MiB) in {time.time() - t0:.1f} s",
@@ -546,7 +561,7 @@ def phase_large(pt, gk, solver, tmp):
     kin_block = min(GRAM_BLOCK, PK_LARGE)
     kin_blocks = -(-PK_LARGE // kin_block)
     kin_bytes = kin_blocks * streaming.SnpBlockStreamer(
-        lrk.G, kin_block).block_bytes
+        lrk.G, kin_block, device="cuda").block_bytes
     os.environ["PYGEMMA_TPU_GENO_DEV_CACHE_MB"] = str(
         (n_blocks * block_bytes + kin_bytes) // 2**20 + 64)
     cache = streaming._DEV_BLOCK_CACHE
@@ -630,7 +645,7 @@ def phase_large(pt, gk, solver, tmp):
                   on_off_dlogp=d_off, on_off_vs_float64=errs,
                   explicit_implicit_dlogp=d_exp)
     return record, dict(y=y, X=X, W=W, lrk=lrk, cfg=cfg, table=df,
-                        head=head, f64_head=f64)
+                        head=head, f64_head=f64, prefix=prefix)
 
 
 def table_diffs(got, ref, what, se_col="se_beta", hold_beta=True):
@@ -834,11 +849,13 @@ def startup_seconds():
 def stage_summary(stages):
     """The CLI's stage log as read, GRM, eigh, scan (null fits, rotation of
     W and Y, the association scan) and write seconds."""
-    out = {"read": 0.0, "grm": 0.0, "eigh": 0.0, "scan": 0.0, "write": 0.0}
+    out = {"read": 0.0, "grm": 0.0, "eigh": 0.0, "broadcast": 0.0,
+           "scan": 0.0, "write": 0.0}
     for name, sec in stages.items():
         key = ("read" if name.startswith("read") else
                "grm" if name.startswith("kinship") else
                "eigh" if name.startswith("eigendecomposition") else
+               "broadcast" if name.startswith("broadcast") else
                "write" if name.startswith("write") else "scan")
         out[key] += sec
     return out
@@ -939,7 +956,196 @@ def phase_cli(tmp):
                 wall_run1_s=wall1, wall_run2_s=wall2, stages_run1=s1,
                 stages_run2=s2, finite_p=finite, grm_err=grm_err,
                 run2_vs_run1_dlogp=d, run2_vs_run1_beta=b,
-                run2_vs_run1_beta_over=over, top_hit=hit)
+                run2_vs_run1_beta_over=over, top_hit=hit), dict(
+        common=common, run2=out2, wall_run2_s=wall2, stages_run2=s2)
+
+
+def mesh_rank_large(tmp: str, prefix: str) -> None:
+    """Phase 11a in one rank of the group: phase 5's configuration over a
+    2-rank mesh, a warm-up call (the basis on rank 0 and its broadcast,
+    read from rank 0's stage log) then a timed call; writes the rank's
+    table and numbers under ``tmp``."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import pygemma_tpu_torch as pt
+    from pygemma_tpu_torch.core.lowrank import LowRankKinship
+    from pygemma_tpu_torch.io.packed import PackedMatrix
+    from pygemma_tpu_torch.ops import gram_kernel as gk
+    from pygemma_tpu_torch.parallel.distributed import all_sum
+    from pygemma_tpu_torch.parallel.mesh import make_mesh
+
+    t_start = time.time()
+    mesh = make_mesh(snp=MESH_RANKS)
+    rank = dist.get_rank()
+    X = PackedMatrix.open_rawbin(prefix)
+    y, W = (np.load(os.path.join(tmp, f"{k}.npy")) for k in ("y", "W"))
+    lrk = LowRankKinship(X.cols(0, PK_LARGE), eps=EPS_LARGE)
+    cfg = pt.GwasConfig(snp_block=BLOCK_LARGE)
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.time()
+    setup_s = t0 - t_start
+    with contextlib.redirect_stderr(log):
+        pt.pygemma(y, X, W, lrk, config=cfg, mesh=mesh, verbose=1)
+    first_s = time.time() - t0
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(.+) - ([0-9.]+) s$", log.getvalue(), re.M)}
+    torch.cuda.synchronize()
+    dist.barrier()
+    gk.fused_grams.launches = 0
+    t0 = time.time()
+    df = pt.pygemma(y, X, W, lrk, config=cfg, mesh=mesh)  # the path's run
+    torch.cuda.synchronize()
+    scan_s = time.time() - t0
+    launches = gk.fused_grams.launches
+    record = dict(rank=rank, backend=dist.get_backend(),
+                  device=str(torch.cuda.current_device()),
+                  setup_s=setup_s, first_call_s=first_s,
+                  stages=stages, scan_s=scan_s, launches=launches,
+                  launches_all_ranks=all_sum(launches),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    np.save(os.path.join(tmp, f"mesh_rank{rank}.npy"),
+            df.to_numpy(dtype=np.float64))
+    with open(os.path.join(tmp, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def phase_mesh_large(ctx, large, prefix, tmp):
+    """Phase 11a: two ranks on the one card over phase 5's cohort."""
+    import numpy as np
+
+    from pygemma_tpu_torch.parallel.distributed import spawn
+
+    np.save(os.path.join(tmp, "y.npy"), ctx["y"])
+    np.save(os.path.join(tmp, "W.npy"), ctx["W"])
+    t0 = time.time()
+    spawn(mesh_rank_large, MESH_RANKS, (tmp, prefix))
+    wall = time.time() - t0
+    recs = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"mesh_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    tabs = [np.load(os.path.join(tmp, f"mesh_rank{r}.npy"))
+            for r in range(MESH_RANKS)]
+    for r in range(1, MESH_RANKS):
+        check(np.array_equal(tabs[0], tabs[r], equal_nan=True),
+              f"rank {r}'s table differs from rank 0's")
+    ref = ctx["table"]
+    cols = list(ref.columns)
+    got = {c: tabs[0][:, i] for i, c in enumerate(cols)}
+    check(tabs[0].shape == ref.shape, f"mesh table shape {tabs[0].shape}")
+    a, b = got["p_wald"], ref["p_wald"].to_numpy()
+    check(np.array_equal(np.isnan(a), np.isnan(b)), "mesh: NaN rows differ")
+    ok = ~np.isnan(b)
+    dl = np.abs(np.log10(np.maximum(a[ok], 1e-300))
+                - np.log10(np.maximum(b[ok], 1e-300)))
+    d, share = float(dl.max()), float((dl > 1e-3).mean())
+    check(d < MESH_DLOGP, f"mesh vs phase 5: max |d log10 p| {d:.3e}")
+    launches = recs[0]["launches_all_ranks"]
+    check(launches > 0, "the kernel was never launched on the mesh path")
+    check(all(rec["backend"] == "gloo" for rec in recs),
+          f"backends {[rec['backend'] for rec in recs]}, not gloo")
+    st = recs[0]["stages"]
+    basis_s = st.get("implicit low-rank eigendecomposition")
+    bcast_s = st.get("broadcast of the eigenbasis")
+    check(basis_s is not None and bcast_s is not None,
+          f"rank 0's stage log lacks the basis or its broadcast: {st}")
+    scan_s = max(rec["scan_s"] for rec in recs)
+    print(f"mesh: {MESH_RANKS} ranks on one card (gloo), phase 5's cohort: "
+          f"basis on rank 0 {basis_s:.2f} s, its broadcast {bcast_s:.2f} s; "
+          f"warm scan {scan_s:.2f} s (slower rank; ranks "
+          + ", ".join(f"{rec['scan_s']:.2f}" for rec in recs)
+          + f") against phase 5's {large['scan_s']:.2f} s in one process; "
+          f"K1 launches {launches} over the ranks (phase 5: "
+          f"{large['launches']}); peak memory "
+          + ", ".join(f"{rec['peak_gib']:.2f}" for rec in recs)
+          + f" GiB; vs phase 5 max|dlog10 p|={d:.3e}, {share:.4%} of SNPs "
+          f"above 1e-3; tables identical across ranks; {wall:.1f} s wall "
+          "with the processes' start", flush=True)
+    return dict(ranks=MESH_RANKS, backend="gloo", launches=launches,
+                basis_s=basis_s, broadcast_s=bcast_s, scan_s=scan_s,
+                scan_s_by_rank=[rec["scan_s"] for rec in recs],
+                first_call_s=[rec["first_call_s"] for rec in recs],
+                phase5_scan_s=large["scan_s"],
+                peak_gib_by_rank=[rec["peak_gib"] for rec in recs],
+                vs_phase5_dlogp=d, vs_phase5_share_above_1e3=share,
+                wall_s=wall)
+
+
+def phase_mesh_cli(tmp, files):
+    """Phase 11b: the command line with --mesh 2 against phase 10's run 2."""
+    import pandas as pd
+
+    out = os.path.join(tmp, "pheno0_mesh.assoc.txt")
+    wall, stages, launches = run_cli(
+        files["common"] + ["--pheno-col", "0", "--tests", "wald,lrt,score",
+                           "--out-format", "gemma", "--out", out,
+                           "--mesh", str(MESH_RANKS)], "--mesh 2")
+    check(launches > 0, "the --mesh CLI run never launched the kernel")
+    got, ref = pd.read_csv(out, sep="\t"), pd.read_csv(files["run2"], sep="\t")
+    check(list(got.columns) == list(ref.columns) and len(got) == len(ref),
+          "the --mesh table's shape or columns differ from run 2's")
+    d = {col: table_close_dlogp(got, ref, col, MESH_DLOGP)
+         for col in ("p_wald", "p_lrt", "p_score")}
+    s = stage_summary(stages)
+    print(f"mesh: CLI --mesh {MESH_RANKS} (pheno 0, wald+lrt+score, GEMMA): "
+          f"{wall:.2f} s wall (run 2 in one process "
+          f"{files['wall_run2_s']:.2f} s); " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in s.items())
+          + f"; kernel launches {launches} over the ranks; against run 2 "
+          + ", ".join(f"{k} max|dlog10 p|={v:.3e}" for k, v in d.items()),
+          flush=True)
+    return dict(launches=launches, wall_s=wall, stages=s,
+                run2_wall_s=files["wall_run2_s"], vs_run2_dlogp=d)
+
+
+def phase_mesh_nccl(pt, oracle):
+    """Phase 11c: a one-rank NCCL mesh in this process; the eigenbasis, the
+    null fit and the table go through NCCL's broadcast and gather of device
+    tensors."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from pygemma_tpu_torch.parallel.mesh import make_mesh
+
+    y, G, W, K = oracle.simulate(n=NCCL_N, p=NCCL_P, c=3, seed=11)
+    cfg = pt.GwasConfig(dtype="float64", snp_block=NCCL_BLOCK,
+                        tests=("wald", "lrt", "score"))
+    ref = pt.pygemma(y, G, W, K, config=cfg)
+    pt.api._EIGEN_DEV_CACHE.clear()  # the mesh run broadcasts its basis
+    mesh = make_mesh(snp=1)
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"one rank with a card took {backend}")
+        t0 = time.time()
+        got = pt.pygemma(y, G, W, K, config=cfg, mesh=mesh)
+        mesh_s = time.time() - t0
+    finally:
+        dist.destroy_process_group()
+        pt.api._EIGEN_DEV_CACHE.clear()
+    check(list(got.columns) == list(ref.columns), "columns differ")
+    worst = 0.0
+    for col in ref.columns:
+        a, b = got[col].to_numpy(), ref[col].to_numpy()
+        check(np.array_equal(np.isnan(a), np.isnan(b)),
+              f"NCCL mesh {col}: NaN rows differ")
+        ok = ~np.isnan(b)
+        check(np.allclose(a[ok], b[ok], rtol=CARD_CPU_RTOL, atol=1e-12),
+              f"NCCL mesh {col} differs from the scan without a mesh")
+        rel = np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-300)
+        worst = max(worst, float(rel.max()))
+    print(f"mesh: one-rank NCCL mesh, n={NCCL_N} p={NCCL_P} float64 "
+          f"wald+lrt+score, against no mesh max rel {worst:.3e} "
+          f"({mesh_s:.2f} s)", flush=True)
+    return dict(backend=backend, n=NCCL_N, p=NCCL_P, max_rel=worst,
+                seconds=mesh_s)
 
 
 def phase_full(pt, gk, solver):
@@ -1109,7 +1315,11 @@ def main() -> int:
         multi = phase_multi(pt, gk, solver, ctx, tmp)
 
         # 10. the command line on a PLINK cohort
-        cli = phase_cli(tmp)
+        cli, cli_files = phase_cli(tmp)
+
+        # 11. (a) two ranks on phase 5's cohort; (b) the CLI with --mesh 2
+        mesh = phase_mesh_large(ctx, large, ctx["prefix"], tmp)
+        mesh_cli = phase_mesh_cli(tmp, cli_files)
 
         # 6. full width, dense K (its profile comes after every timed scan)
         full = phase_full(pt, gk, solver)
@@ -1126,6 +1336,9 @@ def main() -> int:
     # 7. kernel times
     rows, implicit_row = phase_kernel_times(gk)
 
+    # 11. (c) a one-rank NCCL mesh in this process
+    mesh_nccl = phase_mesh_nccl(pt, oracle)
+
     # 8. records
     main_row = rows["kmax3"]
     record = {"kernels": [{
@@ -1135,7 +1348,8 @@ def main() -> int:
         "replaces": "pygemma_tpu/ops/gram_kernel.py:87",
         "launches": (full["launches"] + large["launches"]
                      + multi["launches"] + cli["launches_run1"]
-                     + cli["launches_run2"]),
+                     + cli["launches_run2"] + mesh["launches"]
+                     + mesh_cli["launches"]),
         "launches_by_path": {
             f"dense n={N_FULL} p={P_FULL}": full["launches"],
             f"implicit n={N_LARGE} p={P_LARGE} p_k={PK_LARGE}":
@@ -1145,7 +1359,12 @@ def main() -> int:
             f"cli dense k={K_PHENOS} n={N_FULL} p={P_FULL}":
                 cli["launches_run1"],
             f"cli dense pheno 0 wald+lrt+score n={N_FULL} p={P_FULL}":
-                cli["launches_run2"]},
+                cli["launches_run2"],
+            f"mesh {MESH_RANKS} ranks implicit n={N_LARGE} p={P_LARGE} "
+            f"p_k={PK_LARGE} (summed over ranks)": mesh["launches"],
+            f"mesh {MESH_RANKS} ranks cli dense pheno 0 wald+lrt+score "
+            f"n={N_FULL} p={P_FULL} (summed over ranks)":
+                mesh_cli["launches"]},
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1165,6 +1384,8 @@ def main() -> int:
     print(json.dumps({"full_width": full}), flush=True)
     print(json.dumps({"multi_phenotype": multi}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"mesh": {"large": mesh, "cli": mesh_cli,
+                               "nccl": mesh_nccl}}), flush=True)
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,17 +5,24 @@ experiments/1000G/run_snp.py:22-32, experiments/large_gwas/run_pygemma.py:23-31)
 with one CLI covering every ingest format, plus a ``plot`` subcommand.  The
 flags are ``python -m pygemma_tpu``'s, plus ``--device`` (``cuda``, the
 default, or ``cpu``); without a card the default raises instead of falling
-back.  ``--mesh`` raises ``NotImplementedError``: multi-GPU runs are not
-ported yet.
+back.
+
+``--mesh N`` shards the scan over N ranks of a ``torch.distributed`` group,
+one process each (``parallel/``).  Started by a launcher (``torchrun
+--nproc-per-node N``, or srun: ``RANK`` is set) the process joins that
+group; otherwise it starts the N ranks itself on this host.  Every rank
+reads the inputs; rank 0 logs and writes the output.
 
 With ``--verbose 1`` (the default) every stage ends with a line
 ``<stage> - <seconds> s`` on stderr, and the last line on stderr reports the
-rows written, lambda_GC and the launches of the fused Gram kernel.
+rows written, lambda_GC and the launches of the fused Gram kernel (summed
+over the ranks under ``--mesh``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -79,6 +86,14 @@ def _read_phenotypes(args):
     return bimbam.read_pheno(args.pheno)
 
 
+def _run_rank(argv, summary) -> None:
+    """One rank of a ``--mesh`` run started by :func:`cmd_run`; rank 0 puts
+    its summary line on ``summary`` for the parent to print last."""
+    args = _parser().parse_args(argv)
+    args.summary = summary
+    cmd_run(args)
+
+
 def cmd_run(args):
     from . import GwasConfig, pygemma
     from . import preprocess as pp
@@ -87,10 +102,25 @@ def cmd_run(args):
     from .ops.gram_kernel import fused_grams
     from .utils.logging import StageLogger
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet (later slice: multi-GPU)")
     resolve_device(args.device)
+    if args.mesh and "RANK" not in os.environ:
+        import importlib
+        import multiprocessing
+
+        from .parallel.distributed import spawn
+
+        # the ranks find _run_rank by this module's import name: under
+        # ``python -m`` this module is __main__, which they cannot import
+        this = importlib.import_module(f"{__package__}.__main__")
+        summary = multiprocessing.get_context("spawn").SimpleQueue()
+        spawn(this._run_rank, args.mesh, (args.argv, summary))
+        print(summary.get(), file=sys.stderr)
+        return
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh(snp=args.mesh, device=args.device)
     log = StageLogger(args.verbose)
     t_start = time.time()
 
@@ -180,8 +210,16 @@ def cmd_run(args):
                      grid=args.grid, snp_block=args.snp_block)
     launches = fused_grams.launches
     df = pygemma(Y, X, W, K, snps=names, eigen=eigen, verbose=args.verbose,
-                 config=cfg, run_dir=args.run_dir, device=args.device)
+                 config=cfg, run_dir=args.run_dir, mesh=mesh,
+                 device=args.device)
     launches = fused_grams.launches - launches
+    if mesh is not None:
+        from .parallel.distributed import all_sum
+        from .parallel.mesh import is_writer
+
+        launches = all_sum(launches)
+        if not is_writer(mesh):
+            return
     with log.stage(f"write {args.out}"):
         if chrom is not None:
             reps = len(df) // len(chrom)
@@ -194,10 +232,14 @@ def cmd_run(args):
         else:
             df.to_csv(args.out, sep="\t", index=False)
 
-    print(f"wrote {args.out} ({len(df)} rows) in "
-          f"{time.time() - t_start:.1f}s; "
-          f"lambda_GC={pp.genomic_control_lambda(df['p_wald']):.4f}; "
-          f"fused Gram kernel launches {launches}", file=sys.stderr)
+    line = (f"wrote {args.out} ({len(df)} rows) in "
+            f"{time.time() - t_start:.1f}s; "
+            f"lambda_GC={pp.genomic_control_lambda(df['p_wald']):.4f}; "
+            f"fused Gram kernel launches {launches}")
+    if getattr(args, "summary", None) is not None:
+        args.summary.put(line)
+    else:
+        print(line, file=sys.stderr)
 
 
 def cmd_plot(args):
@@ -212,7 +254,7 @@ def cmd_plot(args):
         qq_plot(df[args.pval_col], save_path=args.qq)
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pygemma_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -240,8 +282,10 @@ def main(argv=None):
     r.add_argument("--lowrank-eps", type=float, default=1e-3,
                    help="diagonal ridge for --lowrank-snps (default 1e-3)")
     r.add_argument("--mesh", type=int, default=0,
-                   help="shard the scan over an N-device mesh (not ported: "
-                        "raises NotImplementedError)")
+                   help="shard the scan over N ranks, one process and one "
+                        "card each (ranks may share a card): joins the "
+                        "launcher's group under torchrun/srun, else starts "
+                        "N ranks on this host")
     r.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="compute device (default cuda; raises without one)")
     r.add_argument("--pheno", required=True)
@@ -278,8 +322,13 @@ def main(argv=None):
     pl.add_argument("--manhattan")
     pl.add_argument("--qq")
     pl.set_defaults(func=cmd_plot)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    args.argv = argv
     args.func(args)
 
 

@@ -14,10 +14,13 @@ Genotypes come as a float array or streamed as 2-bit or int8 codes
 on the device.  The kinship is dense (or precomputed eigenvalues with
 ``eigen=False``) or a :class:`~pygemma_tpu_torch.core.lowrank.LowRankKinship`,
 scanned by default in its top eigenspace with the complement folded in
-implicitly.  With three or more phenotypes (and no ``run_dir``) each SNP
-block streams once and is rotated, or prepared in the top space, once for
-all of them; otherwise phenotypes are scanned one column at a time.  Device
-meshes and the divide-and-conquer eigh raise ``NotImplementedError``.
+implicitly.  With three or more phenotypes (and no ``run_dir``, no mesh)
+each SNP block streams once and is rotated, or prepared in the top space,
+once for all of them; otherwise phenotypes are scanned one column at a time.
+With ``mesh=`` (:func:`pygemma_tpu_torch.parallel.mesh.make_mesh`) the scan
+is SNP-sharded over the ranks of a ``torch.distributed`` group, one process
+each, and every rank returns the same table.  The divide-and-conquer eigh
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import pandas as pd
 import torch
 from scipy import stats
+from torch.distributed.device_mesh import DeviceMesh
 
 from .config import GwasConfig, from_env
 from .convert import is_jax_object
@@ -61,6 +65,9 @@ from .io.streaming import (
     _cache_budget_bytes,
     prefill_device_cache,
 )
+from .parallel import distributed
+from .parallel.dist import from_rank0, gather_columns
+from .parallel.mesh import is_writer, put_replicated, rank_device, snp_shard
 from .utils.checkpoint import RunCheckpoint
 from .utils.logging import StageLogger
 
@@ -81,9 +88,10 @@ def _reject_unported(K, X, mesh, cfg: GwasConfig) -> None:
                 f"{name} is a {type(obj).__module__}.{type(obj).__name__}, "
                 "an object of the JAX package; convert it with "
                 "pygemma_tpu_torch.convert.from_jax first")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (later slice: multi-GPU)")
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh is a {type(mesh).__module__}.{type(mesh).__name__}; build "
+            "it with pygemma_tpu_torch.parallel.mesh.make_mesh")
     if cfg.eigh_backend == "dc":
         raise NotImplementedError(
             "eigh_backend='dc' is not ported yet (later slice: large-n eigh)")
@@ -342,6 +350,13 @@ def pygemma(
       tests: any of "wald", "lrt", "score".
       device: "cuda" (the default) or "cpu"; without a CUDA device the
          default raises instead of falling back.
+      mesh: a (sample, snp) mesh of ranks from
+         :func:`pygemma_tpu_torch.parallel.mesh.make_mesh`, whose device type
+         is ``device``'s.  Every rank calls ``pygemma`` with the same
+         arguments; each runs the scan on its share of every SNP block's
+         columns on its own device, and all return the identical table.
+         Replicated inputs (W, Y, the eigenbasis, the null fit) are rank 0's;
+         rank 0 alone writes ``run_dir`` and logs.
     """
     dev = resolve_device(device)
     cfg = config or from_env()
@@ -350,7 +365,16 @@ def pygemma(
     if tests is not None and tuple(tests) != cfg.tests:
         cfg = cfg.replace(tests=tuple(tests))
     _reject_unported(K, X, mesh, cfg)
+    if mesh is not None:
+        if rank_device(mesh).type != dev.type:
+            raise ValueError(f"the mesh's ranks run on {mesh.device_type}, "
+                             f"not on device={device!r}")
+        dev = rank_device(mesh)
+    writer = is_writer(mesh)
     log = StageLogger(verbose)
+    if mesh is not None:
+        log.log(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+                f"on {dev.type}, backend {torch.distributed.get_backend()}")
 
     dtype = np.dtype(cfg.dtype)
     Y = np.asarray(Y, dtype=dtype)
@@ -385,6 +409,12 @@ def pygemma(
     def to_dev(a):
         return torch.as_tensor(np.asarray(a, dtype)).to(dev)
 
+    def replicated(a):
+        """A host input on this rank's device; under a mesh, rank 0's."""
+        if mesh is None:
+            return to_dev(a)
+        return put_replicated(np.asarray(a, dtype), mesh)
+
     lowrank = isinstance(K, LowRankKinship)
     if Z is not None and eigen:
         if lowrank:
@@ -396,45 +426,75 @@ def pygemma(
     if eigen and K is not None:
         fingerprint = _kinship_fingerprint(K if lowrank else np.asarray(K))
         eig_key = f"{fingerprint}|{cfg.dtype}"
+    done = None  # the run_dir's finished block keys
     if run_dir is not None:
-        ckpt = RunCheckpoint(run_dir)
-        ckpt.clean_stale()
-        # Saved blocks are only resumable under the same settings.
-        run_meta = {"tests": list(cfg.tests), "grid": cfg.grid,
-                    "dtype": cfg.dtype, "de": de, "snp_block": cfg.snp_block}
-        prev_meta = ckpt.load_meta()
-        if prev_meta is None:
-            ckpt.save_meta(run_meta)
-        elif prev_meta != run_meta:
-            raise ValueError(
-                f"run_dir {run_dir} holds blocks computed with different "
-                f"settings ({prev_meta}); use a fresh run_dir for "
-                f"{run_meta}"
-            )
+        error = None
+        if writer:  # under a mesh the run_dir is rank 0's alone
+            ckpt = RunCheckpoint(run_dir)
+            ckpt.clean_stale()
+            # Saved blocks are only resumable under the same settings.
+            run_meta = {"tests": list(cfg.tests), "grid": cfg.grid,
+                        "dtype": cfg.dtype, "de": de,
+                        "snp_block": cfg.snp_block}
+            prev_meta = ckpt.load_meta()
+            if prev_meta is None:
+                ckpt.save_meta(run_meta)
+            elif prev_meta != run_meta:
+                error = (f"run_dir {run_dir} holds blocks computed with "
+                         f"different settings ({prev_meta}); use a fresh "
+                         f"run_dir for {run_meta}")
+            done = set(ckpt.completed_blocks())
+        if mesh is not None:
+            error, done = distributed.broadcast_object((error, done))
+        if error is not None:
+            raise ValueError(error)
+    if mesh is not None:
+        eig_key = distributed.broadcast_object(eig_key)
 
     def eigen_basis(key, stage, compute):
         """(ev, U) on the device: from the device cache, the run_dir, or
-        ``compute()``; the result becomes the device cache's one entry."""
+        ``compute()``; the result becomes the device cache's one entry.
+        Under a mesh, rank 0 finds or computes it and broadcasts it, unless
+        every rank holds it already."""
         cache_key = (key, str(dev))
-        dev_cached = _EIGEN_DEV_CACHE.get(cache_key)
-        if dev_cached is not None:
-            return dev_cached
-        cached = ckpt.load_eigen(key) if ckpt is not None else None
-        if cached is not None:
-            ev_d, U_d = to_dev(cached[0]), to_dev(cached[1])
-        else:
+        hit = _EIGEN_DEV_CACHE.get(cache_key)
+        if mesh is None and hit is not None:
+            return hit
+        if mesh is not None and distributed.all_true(hit is not None):
+            return hit
+
+        def obtain():
+            if hit is not None:
+                return hit
+            cached = ckpt.load_eigen(key) if ckpt is not None else None
+            if cached is not None:
+                return to_dev(cached[0]), to_dev(cached[1])
             with log.stage(stage):
                 ev_d, U_d = compute()
             if ckpt is not None:
                 ckpt.save_eigen(ev_d.cpu().numpy(), U_d.cpu().numpy(), key)
+            return ev_d, U_d
+
+        if mesh is None:
+            ev_d, U_d = obtain()
+        else:
+            parts = obtain() if writer else None
+            with log.stage("broadcast of the eigenbasis"):
+                ev_d, U_d = from_rank0(mesh, lambda: parts)
         ev_d, U_d = ev_d.to(torch_dtype(dtype)), U_d.to(torch_dtype(dtype))
         _EIGEN_DEV_CACHE.clear()
         _EIGEN_DEV_CACHE[cache_key] = (ev_d, U_d)
         return ev_d, U_d
 
     B = min(cfg.snp_block, max(p, 1))
+    if mesh is not None:
+        # every rank of the snp axis takes an equal share of a block
+        n_snp = snp_shard(mesh, cfg.snp_axis)[1]
+        B = -(-B // n_snp) * n_snp
     # the opt-in fill of the device block cache overlaps the decomposition
-    with _prefill_overlap(X, B, dev):
+    # (single-device runs only)
+    with (_prefill_overlap(X, B, dev) if mesh is None
+          else contextlib.nullcontext()):
         # --- eigendecomposition + rotation (lmm/lmm.py:151-167, 243-246) ---
         impl = None  # _ImplicitScan when the implicit low-rank path is active
         if eigen and lowrank and cfg.lowrank_implicit is not False:
@@ -446,7 +506,7 @@ def pygemma(
                                         "implicit low-rank eigendecomposition",
                                         top_basis)
             with log.stage("rotation of W, Y (top space)"):
-                W_raw, Y_raw = to_dev(W), to_dev(Y)
+                W_raw, Y_raw = replicated(W), replicated(Y)
                 W_dev = rotate(U_top, W_raw)
                 Y_dev = rotate(U_top, Y_raw)
             U_dev = None  # no n x n basis exists on this path
@@ -462,25 +522,28 @@ def pygemma(
                                                cfg.eigh_backend, dtype, dev)
             ev_dev, U_dev = eigen_basis(eig_key, "eigendecomposition", compute)
             with log.stage("rotation of W, Y"):
-                W_dev = rotate(U_dev, to_dev(W))
-                Y_dev = rotate(U_dev, to_dev(Y))
+                W_dev = rotate(U_dev, replicated(W))
+                Y_dev = rotate(U_dev, replicated(Y))
         else:
-            ev_dev = torch.clamp_min(to_dev(np.asarray(K).reshape(-1)), 0.0)
+            ev_dev = torch.clamp_min(replicated(np.asarray(K).reshape(-1)),
+                                     0.0)
             U_dev = None
-            W_dev = to_dev(W)
-            Y_dev = to_dev(Y)
+            W_dev = replicated(W)
+            Y_dev = replicated(Y)
 
         n_pheno = Y.shape[1]
         # Batched multi-phenotype scan (eQTL-style workloads; the reference
         # runs a SLURM array per gene instead,
         # experiments/1000G/run_pyGEMMA.sh:43-52).  run_dir resumes per
-        # phenotype, so it keeps the looped scan.
-        if n_pheno >= 3 and ckpt is None:
+        # phenotype, and a mesh gathers per phenotype, so both keep the
+        # looped scan.
+        if n_pheno >= 3 and run_dir is None and mesh is None:
             frames = _scan_phenos_batched(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
                                           de, n, p, B, log, dev, impl)
         else:
             frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
-                                         de, n, p, B, log, ckpt, dev, impl)
+                                         de, n, p, B, log, ckpt, dev, impl,
+                                         mesh, done)
     results_df = pd.concat(frames, ignore_index=True) if len(frames) > 1 else frames[0]
     if snps is not None:
         results_df["SNPs"] = (
@@ -490,11 +553,18 @@ def pygemma(
 
 
 def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
-                        log, ckpt, dev, impl: Optional[_ImplicitScan] = None):
+                        log, ckpt, dev, impl: Optional[_ImplicitScan] = None,
+                        mesh=None, done: Optional[set] = None):
+    """One phenotype at a time.  ``done`` holds the run_dir's finished
+    block keys (None without a run_dir; ``ckpt`` is None on ranks other
+    than 0).  Under a mesh each rank streams and scans its share of every
+    block's columns; the shares are gathered once a phenotype, or once a
+    block with a run_dir, which rank 0 then writes."""
     n_pheno = Y_dev.shape[1]
     c = W_dev.shape[1]
     frames = []
     keys = _result_keys(cfg)
+    shard = None if mesh is None else snp_shard(mesh, cfg.snp_axis)
     for ph in range(n_pheno):
         y_dev = Y_dev[:, ph]
         shared_raw = ictx = None
@@ -502,8 +572,12 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
             shared_raw, ictx = impl.context(ph)
         null_arr = None
         if ("lrt" in cfg.tests) or ("score" in cfg.tests):
+            def fit():
+                return (_fit_null(ev_dev, W_dev, y_dev, cfg, ictx),)
+
             with log.stage("null-model fit"):
-                null_arr = _fit_null(ev_dev, W_dev, y_dev, cfg, ictx)
+                # under a mesh rank 0's, so D_lrt is the same on every rank
+                (null_arr,) = fit() if mesh is None else from_rank0(mesh, fit)
 
         null_ml = float(null_arr[2]) if null_arr is not None else None
 
@@ -518,7 +592,9 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
 
         # Results stay on the device until the scan has been dispatched (or
         # go to a writer thread when run_dir durability is on), so no pull
-        # sits between blocks beyond the solver's own syncs.
+        # sits between blocks beyond the solver's own syncs.  A mesh with a
+        # run_dir gathers each block in this thread: collectives never run
+        # from the writer.
         pending = []  # (m, stacked device tensor) | ("blk", dict) | futures
         writer = cf.ThreadPoolExecutor(max_workers=1) if ckpt else None
 
@@ -527,14 +603,23 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
             ckpt.save_block(ph * p + start_, blk)
             return blk
 
+        def _save(start_, blk):
+            ckpt.save_block(ph * p + start_, blk)
+            return blk
+
         try:
             with log.stage(f"association scan ({p} SNPs, n={n})"):
-                streamer = SnpBlockStreamer(X, B, dtype=X.dtype, device=dev)
+                streamer = SnpBlockStreamer(X, B, dtype=X.dtype, device=dev,
+                                            shard=shard)
                 for start, stop, xb_dev in log.track(
                         streamer, "Testing SNPs...", total=-(-p // B)):
                     m = stop - start
-                    if ckpt is not None and ckpt.has_block(ph * p + start):
-                        pending.append(("blk", ckpt.load_block(ph * p + start)))
+                    if done is not None and ph * p + start in done:
+                        blk = (ckpt.load_block(ph * p + start)
+                               if ckpt is not None else None)
+                        if mesh is not None:
+                            blk = distributed.broadcast_object(blk)
+                        pending.append(("blk", blk))
                         continue
                     block_ctx = None
                     if impl is not None:
@@ -546,12 +631,22 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
                         xb_dev = rotate(U_dev, xb_dev)
                     stacked = _assoc_block(ev_dev, W_dev, y_dev, xb_dev, cfg,
                                            null_arr, de, block_ctx)
-                    if writer is not None:
+                    if done is None:
+                        pending.append((m, stacked))
+                    elif mesh is None:
                         pending.append(writer.submit(_pull_save, start, m,
                                                      stacked))
                     else:
-                        pending.append((m, stacked))
+                        blk = block_to_cols(gather_columns(
+                            [stacked], mesh, cfg.snp_axis, m), m)
+                        pending.append(writer.submit(_save, start, blk)
+                                       if writer is not None
+                                       else ("blk", blk))
 
+                if mesh is not None and done is None:
+                    # one gather of every block's shares
+                    pending = [("blk", block_to_cols(gather_columns(
+                        [t for _, t in pending], mesh, cfg.snp_axis, p), p))]
                 for item in pending:
                     if isinstance(item, tuple) and item[0] == "blk":
                         blk = item[1]

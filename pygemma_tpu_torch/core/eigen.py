@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..device import torch_dtype
+from ..device import resolve_device, torch_dtype
 
 
 def eigendecompose(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,8 +68,9 @@ def device_eigh_fits(n: int, itemsize: int, device) -> bool:
 
 
 def auto_eigendecompose(K, backend: str = "auto", dtype=None,
-                        device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eigendecompose K and return (ev, U) as tensors on ``device``.
+                        device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigendecompose K and return (ev, U) as tensors on ``device`` (the
+    card unless the caller asks for the CPU; without a card it raises).
 
     ``K`` is a host array or a tensor; a tensor already on ``device`` (the
     low-rank path's p_k x p_k Gram) is decomposed there without a trip
@@ -79,7 +80,7 @@ def auto_eigendecompose(K, backend: str = "auto", dtype=None,
     :func:`device_eigh_fits`, else the host.  The JAX package's "dc"
     (spectral divide and conquer) backend is not ported.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     if isinstance(K, torch.Tensor):
         Kt = K if dtype is None else K.to(torch_dtype(dtype))
     else:

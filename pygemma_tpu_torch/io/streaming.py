@@ -33,7 +33,8 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import torch_dtype
+from ..device import resolve_device, torch_dtype
+from ..parallel.mesh import local_columns
 from .packed import PackedMatrix, dequantize_packed_device
 from .quantized import QuantizedMatrix, dequantize_device
 
@@ -148,15 +149,27 @@ class SnpBlockStreamer:
     ``X`` is an (n, p) ndarray, a PackedMatrix or a QuantizedMatrix; blocks
     are padded to ``block`` columns with zeros (zero codes for the coded
     kinds, whose padding columns the caller drops with the block's tail).
+
+    With ``shard=(index, count)`` (a rank of a mesh's ``snp`` axis) each
+    block yields only that share of its columns, ``block / count`` wide
+    (:func:`~pygemma_tpu_torch.parallel.mesh.local_columns`): only those
+    columns, or their codes, are read and shipped.  The yielded (start,
+    stop) stay the whole block's.
     """
 
-    def __init__(self, X, block: int, dtype=np.float32, device="cpu",
-                 depth: Optional[int] = None):
+    def __init__(self, X, block: int, dtype=np.float32, device="cuda",
+                 depth: Optional[int] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         self.X = X
         self.block = block
         self.dtype = np.dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.p = X.shape[1]
+        if shard is not None and block % shard[1]:
+            raise ValueError(f"a block of {block} columns does not split "
+                             f"into {shard[1]} equal shares")
+        self.shard = shard
+        width = block if shard is None else block // shard[1]
         # prefetch depth: how many blocks are sliced/shipped ahead of the
         # consumer (env override for measurements)
         self.depth = max(1, int(
@@ -174,14 +187,14 @@ class SnpBlockStreamer:
             code_dtype = np.int8
         else:
             self.kind = "dense"
-            self._specs = [((X.shape[0], block), self.dtype)]
+            self._specs = [((X.shape[0], width), self.dtype)]
         if self.kind != "dense":
             if self.dtype != np.float32:
                 raise ValueError(
                     f"{type(X).__name__} blocks dequantize to float32, not "
                     f"{self.dtype}")
-            self._specs = [((n_rows, block), code_dtype),
-                           ((block,), np.float32), ((block,), np.float32)]
+            self._specs = [((n_rows, width), code_dtype),
+                           ((width,), np.float32), ((width,), np.float32)]
         # the device block cache holds packed blocks of file-backed matrices
         token = X.cache_token if self.kind == "packed" else None
         self._token = token if _cache_budget_bytes() > 0 else None
@@ -193,20 +206,22 @@ class SnpBlockStreamer:
                    for shape, dt in self._specs)
 
     def _fill(self, start: int, stop: int, outs) -> None:
-        """Write block [start, stop) zero-padded into host arrays ``outs``
-        (padded affine columns get sd = 1)."""
+        """Write block [start, stop), or this shard's columns of it,
+        zero-padded into host arrays ``outs`` (padded affine columns get
+        sd = 1)."""
+        if self.shard is not None:
+            start, stop = local_columns(start, stop, self.block, self.shard)
         m = stop - start
         if self.kind == "dense":
             outs[0][:, :m] = self.X[:, start:stop]
             outs[0][:, m:] = 0
             return
-        g, mu, sd = self.X.quant_block(start, stop)
-        outs[0][:, :m] = g
         outs[0][:, m:] = 0
-        outs[1][:m] = mu
         outs[1][m:] = 0
-        outs[2][:m] = sd
         outs[2][m:] = 1
+        if m:
+            outs[0][:, :m], outs[1][:m], outs[2][:m] = self.X.quant_block(
+                start, stop)
 
     def _stage(self, start: int, stop: int):
         """Block [start, stop) on the device as its raw tensors, plus the
@@ -218,7 +233,8 @@ class SnpBlockStreamer:
         return tuple(torch.from_numpy(o) for o in outs), None
 
     def _key(self, start: int, stop: int):
-        return (self._token, start, stop, self.block, str(self.device))
+        return (self._token, start, stop, self.block, self.shard,
+                str(self.device))
 
     def _fetch(self, start: int):
         stop = min(start + self.block, self.p)

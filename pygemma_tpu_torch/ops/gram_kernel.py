@@ -183,22 +183,29 @@ def launch(lib: ctypes.CDLL, lam, ev, pairs, shared, v, kmax: int,
     B, R = lam.shape
     n, m = pairs.shape
     s = shared.shape[1]
-    dev = v.device
-    nsplit, plan_span, rows = launch_plan(
-        n, B, R, m, s, kmax, _sm_count(dev.index), _blocks_per_sm(lib, kmax),
-        lib.geometry)
-    if span is not None:
-        if span <= 0 or span % lib.geometry[3]:
-            raise ValueError(f"span must be a positive multiple of "
-                             f"{lib.geometry[3]}, got {span}")
-        nsplit, plan_span = _cdiv(n, span), span
-    part = torch.empty((nsplit, rows, B * R), dtype=torch.float32, device=dev)
-    out = torch.empty((rows, B, R), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.gram_fused_launch(
-        lam.data_ptr(), ev.data_ptr(), pairs.data_ptr(), shared.data_ptr(),
-        v.data_ptr(), part.data_ptr(), out.data_ptr(),
-        n, B, R, m, s, kmax, int(want_logh), nsplit, plan_span, stream)
+    index = v.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    dev = torch.device("cuda", index)
+    # the library's occupancy query, its stream and its <<<>>> launch all
+    # act on the thread's current device: make it the tensors' own
+    with torch.cuda.device(index):
+        nsplit, plan_span, rows = launch_plan(
+            n, B, R, m, s, kmax, _sm_count(index), _blocks_per_sm(lib, kmax),
+            lib.geometry)
+        if span is not None:
+            if span <= 0 or span % lib.geometry[3]:
+                raise ValueError(f"span must be a positive multiple of "
+                                 f"{lib.geometry[3]}, got {span}")
+            nsplit, plan_span = _cdiv(n, span), span
+        part = torch.empty((nsplit, rows, B * R), dtype=torch.float32,
+                           device=dev)
+        out = torch.empty((rows, B, R), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gram_fused_launch(
+            lam.data_ptr(), ev.data_ptr(), pairs.data_ptr(),
+            shared.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(),
+            n, B, R, m, s, kmax, int(want_logh), nsplit, plan_span, stream)
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
     fused_grams.launches += 1

@@ -3,7 +3,8 @@
 Mirrors the reference's stage logs (lmm/lmm.py:144-163): with ``verbose``
 on, each stage ends with one plain line on stderr, ``<stage> - <seconds> s``,
 which the command line's users and scripts can read; the SNP loop shows a
-rich progress bar when rich is installed.
+rich progress bar when rich is installed.  In a multi-GPU run only rank 0
+logs: the other ranks run the same stages.
 """
 
 from __future__ import annotations
@@ -12,13 +13,23 @@ import contextlib
 import sys
 import time
 
+import torch.distributed as dist
+
+
+def _quiet_rank() -> bool:
+    """Whether this process is a rank other than 0 of a process group."""
+    return dist.is_initialized() and dist.get_rank() != 0
+
 
 class StageLogger:
     def __init__(self, verbose: int = 0):
         self.verbose = verbose
 
+    def _on(self) -> bool:
+        return self.verbose > 0 and not _quiet_rank()
+
     def log(self, msg: str) -> None:
-        if self.verbose > 0:
+        if self._on():
             print(msg, file=sys.stderr, flush=True)
 
     @contextlib.contextmanager
@@ -33,7 +44,7 @@ class StageLogger:
         """Progress bar over an iterable (reference rich.progress.track SNP
         bar, lmm/lmm.py:395); plain pass-through when quiet or without
         rich."""
-        if self.verbose <= 0:
+        if not self._on():
             return iterable
         try:
             from rich.progress import track as _track

@@ -345,12 +345,28 @@ def test_cli_multi_phenotype_covariates_and_pcs(tmp_path):
     _compare(got, ref, "float32")
 
 
-def test_cli_mesh_and_device(tmp_path, monkeypatch):
-    prefix, ph = _cohort(tmp_path, 3, 20, 4)
+def test_cli_mesh_and_device(tmp_path, monkeypatch, capfd):
+    """--mesh 2 --device cpu starts two gloo ranks (processes) on this host
+    and matches ``python -m pygemma_tpu --mesh 2``; only rank 0 logs, and
+    the last stderr line is the parent's summary."""
+    prefix, ph = _cohort(tmp_path, 3, 40, 21, causal=4)
+    common = ["--bfile", prefix, "--pheno", ph, "--mesh", "2",
+              "--snp-block", "8", "--tests", "wald,lrt"]
+    out = str(tmp_path / "t.tsv")
+    capfd.readouterr()
+    tcli.main(["run", *common, "--out", out, "--device", "cpu"])
+    err = capfd.readouterr().err.strip().splitlines()
+    assert err[-1].startswith(f"wrote {out} (21 rows)")
+    assert "fused Gram kernel launches 0" in err[-1]  # CPU: the plain version
+    assert sum(line.startswith("association scan") for line in err) == 1
+    jcli.main(["run", *common, "--out", str(tmp_path / "j.tsv"),
+               "--verbose", "0"])
+    got, ref = (pd.read_csv(tmp_path / f, sep="\t") for f in ("t.tsv",
+                                                            "j.tsv"))
+    _compare(got, ref, "float32")
+    assert len(got) == 21 and got["p_wald"].idxmin() == 4
     args = ["run", "--bfile", prefix, "--pheno", ph, "--out",
             str(tmp_path / "o.tsv")]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tcli.main(args + ["--mesh", "2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(args)  # the default device is the card

@@ -2,7 +2,9 @@
 version (also at the implicit low-rank path's shape), the pinned-buffer
 streamer for float, 2-bit and int8 genotypes, the device block cache under a
 racing prefill, the scan on the card against the scan on the CPU (one
-phenotype and the batched four), the kinship GEMM, and the command line.
+phenotype and the batched four), the kinship GEMM, the command line, and
+the multi-GPU path: two ranks sharing the card over gloo, a one-rank NCCL
+mesh, ``--mesh 2``, and the kernel on a card that is not the current one.
 
 The module imports neither jax nor pygemma_tpu, so on a machine with a card
 it runs without the JAX-configuring conftest:
@@ -12,6 +14,8 @@ it runs without the JAX-configuring conftest:
 Without a card every case skips.
 """
 
+import os
+import subprocess
 import sys
 import threading
 
@@ -27,6 +31,7 @@ from pygemma_tpu_torch.io.packed import PackedMatrix, write_rawbin_2bit
 from pygemma_tpu_torch.io.quantized import MISSING_CODE, QuantizedMatrix
 from pygemma_tpu_torch.io.streaming import SnpBlockStreamer
 from pygemma_tpu_torch.ops import gram_kernel as gk
+from pygemma_tpu_torch.parallel import distributed
 
 pytestmark = pytest.mark.gpu
 
@@ -312,3 +317,117 @@ def test_scan_float32_kernel_on_matches_off(data, cuda):
     np.testing.assert_array_equal(np.isnan(p_on), np.isnan(p_off))
     ok = ~np.isnan(p_off)
     assert np.abs(np.log10(p_on[ok]) - np.log10(p_off[ok])).max() < 0.05
+
+
+_MESH_RANK = r"""
+import json, sys
+import numpy as np
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import oracle
+import pygemma_tpu_torch as pt
+from pygemma_tpu_torch.ops import gram_kernel as gk
+from pygemma_tpu_torch.parallel.distributed import all_sum
+from pygemma_tpu_torch.parallel.mesh import make_mesh
+y, G, W, K = oracle.simulate(n=220, p=40, c=3, seed=5)
+G[:, 7] = 0.0
+mesh = make_mesh(snp=int(sys.argv[4]))
+out = {"backend": dist.get_backend()}
+for dtype in ("float64", "float32"):
+    cfg = pt.GwasConfig(dtype=dtype, snp_block=16, tests=("wald", "lrt"))
+    before = gk.fused_grams.launches
+    df = pt.pygemma(y, G, W, K, config=cfg, mesh=mesh)
+    out[dtype] = df.to_dict(orient="list")
+    out[dtype + "_launches"] = all_sum(gk.fused_grams.launches - before)
+if dist.get_rank() == 0:
+    with open(sys.argv[3], "w") as f:
+        json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def _mesh_ranks(tmp_path, ranks):
+    """Run _MESH_RANK as ``ranks`` processes (the launcher's environment)
+    and return rank 0's tables."""
+    import json
+
+    import pandas as pd
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks),
+               MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(distributed._free_port()))
+    out = str(tmp_path / "mesh.json")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANK, root, os.path.join(root, "tests"),
+         out, str(ranks)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(ranks)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    with open(out) as f:
+        res = json.load(f)
+    tabs = {k: pd.DataFrame(res[k]).astype(float)
+            for k in ("float64", "float32")}
+    return res, tabs
+
+
+@pytest.mark.parametrize("ranks,backend", [(2, "gloo"), (1, "nccl")])
+def test_mesh_on_the_card_matches_one_process(data, cuda, tmp_path, ranks,
+                                              backend):
+    """Two ranks sharing the card (gloo: NCCL refuses two ranks on one
+    device), and one rank alone (NCCL: device-tensor broadcasts and
+    gathers), against the scan without a mesh: float64 to rtol 1e-6, float32
+    within the float32 contract with the kernel launched."""
+    res, tabs = _mesh_ranks(tmp_path, ranks)
+    assert res["backend"] == backend
+    for dtype, tab in tabs.items():
+        cfg = pt.GwasConfig(dtype=dtype, snp_block=16, tests=("wald", "lrt"))
+        ref = pt.pygemma(*data, config=cfg, device=cuda)
+        if dtype == "float64":
+            _same_table(tab, ref)
+        else:
+            _close_p(tab, ref)
+            _close_p(tab, ref, "p_lrt")
+            assert res["float32_launches"] > 0
+
+
+def test_cli_mesh_on_the_card(data, cuda, tmp_path):
+    """python -m pygemma_tpu_torch run --mesh 2: two ranks on the card,
+    against the same command in one process."""
+    import pandas as pd
+
+    from pygemma_tpu_torch import __main__ as cli
+    from pygemma_tpu_torch.io import bimbam, plink
+
+    y = data[0]
+    codes = np.random.default_rng(12).integers(0, 3, size=(len(y), 50))
+    plink.write_bed(str(tmp_path / "g"), codes.astype(np.float32))
+    bimbam.write_pheno(str(tmp_path / "y.txt"), y)
+    args = ["run", "--bfile", str(tmp_path / "g"), "--pheno",
+            str(tmp_path / "y.txt"), "--snp-block", "16", "--verbose", "0",
+            "--tests", "wald,lrt,score"]
+    cli.main(args + ["--out", str(tmp_path / "mesh.tsv"), "--mesh", "2"])
+    cli.main(args + ["--out", str(tmp_path / "one.tsv")])
+    a, b = (pd.read_csv(tmp_path / f, sep="\t")
+            for f in ("mesh.tsv", "one.tsv"))
+    assert len(a) == 50
+    for col in ("p_wald", "p_lrt", "p_score"):
+        _close_p(a, b, col)
+
+
+def test_kernel_on_a_card_that_is_not_current(cuda):
+    """The kernel launches on its tensors' card, not on the thread's
+    current one (each rank of a multi-card host sets its own)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    torch.cuda.set_device(0)
+    args = _kernel_inputs(4099, 300, 3, 1, torch.device("cuda", 1))
+    _check_against_plain(args, 3, True)
+    assert torch.cuda.current_device() == 0

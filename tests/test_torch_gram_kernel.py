@@ -343,3 +343,75 @@ def test_3xtf32_meets_the_parity_rule_and_1xtf32_does_not():
             bad1 |= bool((e1 > allow).any())
     assert ok3
     assert bad1
+
+
+class _FakeCuda:
+    """Stands for a CUDA tensor of a given shape on cuda:<index>: what
+    ``launch`` reads of its inputs and allocates for its outputs."""
+
+    def __init__(self, shape, index):
+        self.shape = tuple(shape)
+        self.device = torch.device("cuda", index)
+
+    def data_ptr(self):
+        return 4096
+
+
+@pytest.mark.parametrize("tensor_index,current", [(1, 0), (0, 1), (2, 0)])
+def test_launch_runs_under_its_tensors_device(monkeypatch, tensor_index,
+                                              current):
+    """A rank whose tensors lie on cuda:1 while cuda:0 is the thread's
+    current device: the occupancy query, the stream and the library call
+    all run with the tensors' card current, and the current device is
+    restored after."""
+    state = {"current": current}
+    seen = {}
+
+    class Guard:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            self.prev, state["current"] = state["current"], self.index
+
+        def __exit__(self, *exc):
+            state["current"] = self.prev
+
+    class Stream:
+        cuda_stream = 7
+
+    def fake_stream(dev=None):
+        seen["stream"] = (dev, state["current"])
+        return Stream()
+
+    def fake_blocks(lib, kmax):
+        seen["occupancy"] = state["current"]
+        return 2
+
+    class Lib:
+        geometry = (128, 8, 8, 32)
+
+        @staticmethod
+        def gram_fused_launch(*args):
+            seen["launch"] = state["current"]
+            seen["stream_arg"] = args[-1]
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", fake_stream)
+    monkeypatch.setattr(gk, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(gk, "_blocks_per_sm", fake_blocks)
+    monkeypatch.setattr(gk.torch, "empty",
+                        lambda shape, **kw: _FakeCuda(shape, kw["device"].index))
+    n, B, c = 1000, 64, 3
+    m = (c + 1) * (c + 2) // 2
+    args = [_FakeCuda(s, tensor_index)
+            for s in ((B, 1), (n,), (n, m), (n, c + 1), (n, B))]
+    before = gk.fused_grams.launches
+    gk.launch(Lib, *args, 3, False)
+    assert gk.fused_grams.launches == before + 1
+    assert seen["launch"] == seen["occupancy"] == tensor_index
+    assert seen["stream"] == (torch.device("cuda", tensor_index),
+                              tensor_index)
+    assert seen["stream_arg"] == 7
+    assert state["current"] == current

@@ -36,7 +36,10 @@ PORT_MODULES = [
     "pygemma_tpu_torch.io.gemma_format", "pygemma_tpu_torch.io.kinship",
     "pygemma_tpu_torch.native.bed_native", "pygemma_tpu_torch.linreg",
     "pygemma_tpu_torch.preprocess", "pygemma_tpu_torch.plotting",
-    "pygemma_tpu_torch.plotting.plot",
+    "pygemma_tpu_torch.plotting.plot", "pygemma_tpu_torch.compare",
+    "pygemma_tpu_torch.utils.profiling", "pygemma_tpu_torch.parallel",
+    "pygemma_tpu_torch.parallel.mesh", "pygemma_tpu_torch.parallel.dist",
+    "pygemma_tpu_torch.parallel.distributed",
 ]
 
 
@@ -121,7 +124,10 @@ def _tiny():
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from pygemma_tpu_torch import __main__ as cli
+    from pygemma_tpu_torch.core.eigen import auto_eigendecompose
     from pygemma_tpu_torch.io import bimbam, kinship, plink
+    from pygemma_tpu_torch.io.streaming import SnpBlockStreamer
+    from pygemma_tpu_torch.parallel import distributed, mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     y, X, W, K = _tiny()
@@ -135,6 +141,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             fn(X)
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.linreg.linreg(y, X, W)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SnpBlockStreamer(X, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        auto_eigendecompose(K)
+    # a rank without a card raises; it does not move to the CPU
+    for fn in (mesh.make_mesh, distributed.initialize):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
     plink.write_bed(str(tmp_path / "g"), np.rint(np.abs(X)).clip(0, 2))
     bimbam.write_pheno(str(tmp_path / "y.txt"), y)
     args = ["run", "--bfile", str(tmp_path / "g"), "--pheno",
@@ -144,6 +158,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     df = pt.pygemma(y, X, W, K, device="cpu")
     assert df.shape == (3, 6)
     assert kinship.kinship_blocked(X, device="cpu").shape == (12, 12)
+    assert len(list(SnpBlockStreamer(X, 2, device="cpu"))) == 2
+    assert auto_eigendecompose(K, device="cpu")[1].shape == (12, 12)
     cli.main(args + ["--device", "cpu", "--verbose", "0"])
     assert (tmp_path / "o.tsv").exists()
 
@@ -166,8 +182,9 @@ def test_entry_points_refuse_tf32(monkeypatch):
                          ["lowrank", "quantized", "packed", "mesh", "dc"])
 def test_unported_inputs_raise(case):
     """The JAX package's own matrix and kinship classes are refused with a
-    TypeError that names the converter; what the port does not cover yet
-    raises NotImplementedError."""
+    TypeError that names the converter, and its mesh (or any object that is
+    not the port's mesh) with one that names the port's ``make_mesh``; what
+    the port does not cover yet raises NotImplementedError."""
     from pygemma_tpu.core.lowrank import LowRankKinship
     from pygemma_tpu.io.packed import PackedMatrix
     from pygemma_tpu.io.quantized import QuantizedMatrix
@@ -182,11 +199,13 @@ def test_unported_inputs_raise(case):
         X = QuantizedMatrix.from_dosages(codes.astype(np.int8))
     elif case == "packed":
         X = PackedMatrix.from_codes(codes.astype(np.uint8))
+    elif case == "mesh":
+        from pygemma_tpu.parallel.mesh import make_mesh
+
+        err, match = TypeError, "parallel.mesh.make_mesh"
+        kw["mesh"] = make_mesh(snp=2)
     else:
         err, match = NotImplementedError, None
-        if case == "mesh":
-            kw["mesh"] = object()
-        else:
-            kw["config"] = tcfg.GwasConfig(eigh_backend="dc")
+        kw["config"] = tcfg.GwasConfig(eigh_backend="dc")
     with pytest.raises(err, match=match):
         pt.pygemma(y, X, W, K, device="cpu", **kw)

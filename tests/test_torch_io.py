@@ -273,7 +273,8 @@ def _rawbin(rng, tmp_path, n=24, p=40, name="pc"):
 
 
 def _stream(X, B):
-    return np.concatenate([xb.numpy() for _, _, xb in TStreamer(X, B)],
+    return np.concatenate([xb.numpy() for _, _, xb in
+                           TStreamer(X, B, device="cpu")],
                           axis=1)[:, :X.shape[1]]
 
 
@@ -297,7 +298,7 @@ def test_device_block_cache_and_prefill(rng, tmp_path, cache_env):
     np.testing.assert_array_equal(_stream(sub, B), ref[:, 16:])
     # the budget bounds insertion: room for two blocks
     streaming.clear_device_block_cache()
-    one = TStreamer(Q, B).block_bytes
+    one = TStreamer(Q, B, device="cpu").block_bytes
     cache_env.setenv("PYGEMMA_TPU_GENO_DEV_CACHE_MB", str(2.5 * one / 2**20))
     assert streaming.prefill_device_cache(Q, B, device="cpu") == 2
     cache_env.setenv("PYGEMMA_TPU_GENO_DEV_CACHE_MB", "0")
@@ -361,7 +362,7 @@ def test_prefill_race_keeps_the_byte_count(rng, tmp_path, cache_env):
             cache = streaming._DEV_BLOCK_CACHE
             assert len(cache) == 50
             assert cache.nbytes == cache.entry_bytes() \
-                == 50 * TStreamer(Q, B).block_bytes
+                == 50 * TStreamer(Q, B, device="cpu").block_bytes
             np.testing.assert_array_equal(got, ref)
     finally:
         sys.setswitchinterval(old)
@@ -404,7 +405,8 @@ def test_convert_streamed_matrices_from_jax(rng, tmp_path, kind):
     assert type(got) is type(T)
     assert got.data is J.data  # the codes are shared, not copied
     np.testing.assert_array_equal(got[:, :], T[:, :])
-    for (_, _, a), (_, _, b) in zip(TStreamer(got, 8), TStreamer(T, 8)):
+    for (_, _, a), (_, _, b) in zip(TStreamer(got, 8, device="cpu"),
+                                    TStreamer(T, 8, device="cpu")):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     if kind == "bed":
         assert got.cache_token is not None

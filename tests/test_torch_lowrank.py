@@ -128,11 +128,12 @@ def test_eigendecompose_takes_a_device_tensor(rng):
     round trip, and agrees with the host-array path."""
     A = rng.standard_normal((30, 30))
     A = A @ A.T
-    ev_t, U_t = auto_eigendecompose(torch.as_tensor(A), dtype=np.float64)
-    ev_h, U_h = auto_eigendecompose(A, dtype=np.float64)
+    ev_t, U_t = auto_eigendecompose(torch.as_tensor(A), dtype=np.float64,
+                                    device=CPU)
+    ev_h, U_h = auto_eigendecompose(A, dtype=np.float64, device=CPU)
     assert torch.equal(ev_t, ev_h) and torch.equal(U_t, U_h)
     ev32, _ = auto_eigendecompose(torch.as_tensor(A), backend="host",
-                                  dtype=np.float32)
+                                  dtype=np.float32, device=CPU)
     assert ev32.dtype == torch.float32
     np.testing.assert_allclose(ev32.numpy(), ev_h.numpy(), rtol=1e-5,
                                atol=1e-5 * float(ev_h.max()))
