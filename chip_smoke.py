@@ -36,8 +36,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (torch.profiler), its wall time per call and the plain version's wall
    time.  Phases 5, 6, 9 and 10 time their scans before any profiler runs,
    because the profiler, once run, slows every later launch from the host;
-8. one JSON line per kernel, and a last line
-   ``{"ok": true, "device": {...}}``;
+8. one JSON line per kernel (phase 12a's scan is one of its paths), and a
+   last line ``{"ok": true, "device": {...}}``;
 9. (run right after phase 5, on its cohort) the batched multi-phenotype
    scan, bench.py:401-423: y and three more phenotypes built as there, one
    block to warm, then all four over p = 100,000 in one call, with the
@@ -61,7 +61,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    2`` and phase 10's run-2 arguments, held to run 2's table; (c) run last,
    a one-rank NCCL mesh in this process (device-tensor broadcasts and
    gathers) on a float64 dense fixture, held to the scan without a mesh
-   at rtol 1e-6.
+   at rtol 1e-6;
+12. the spectral divide-and-conquer eigh (``core/eigh_dc.py``) with its
+   per-split lines on: (a) after phase 11, in phase 5's cohort,
+   ``lowrank_top_basis(lrk, "dc")`` on the 16,384 x 16,384 Gram, timed
+   against phase 5's cuSOLVER basis, its eigenvalues held to cuSOLVER's and
+   its certificate (per-pair residuals, orthonormality) to
+   tests/test_eigh_dc.py's tolerances, the depth-0 split's sign steps,
+   polish rounds and range retries read from its lines, its peak device
+   memory; then the cohort scanned on the dc basis (a cold call, then the
+   path's warm run with the kernel's launches counted) and held to phase
+   5's table within the implicit-basis contract; (b) after phase 6's timed
+   scan, ``auto_eigendecompose(K, "dc")`` on its dense n = 10,000 K (the
+   edge-shave split), held to cuSOLVER's eigenvalues;
+13. (last) the workload layer in this process: each
+   ``experiments/*/*_torch.py`` script's ``main()`` at its defaults
+   (large_gwas on pre-rotated rawbins of a 2,000 x 8,192 fixture) and the
+   five scenarios of ``configs/run_config_torch.py`` at the scales of
+   ``configs/run_config.py``'s docstring, each timed, its tables checked
+   for finite p-values.
 
 It exits non-zero without printing a result when no CUDA device is present.
 """
@@ -102,6 +120,14 @@ MESH_RANKS = 2  # phase 11: ranks sharing the one card
 MESH_DLOGP = 0.05  # the float32 contract between a mesh and one process
 # phase 11c: the one-rank NCCL mesh's float64 dense fixture
 NCCL_N, NCCL_P, NCCL_BLOCK = 1_500, 4_096, 2_048
+# phase 12: eigh_dc against cuSOLVER, tests/test_eigh_dc.py's tolerances
+DC_EV_RTOL, DC_EV_ATOL = 5e-4, 2e-4  # the atol times max|ev|
+DC_RESID, DC_ORTH = 5e-4, 1e-3  # residual times max|ev|; max |U'U - I|
+# phase 13: large_gwas's pre-rotated fixture, and the scenarios' scales
+# (configs/run_config.py's docstring)
+LG_N, LG_P = 2_000, 8_192
+SCENARIO_SCALES = {"mouse_hs1940": 1.0, "bxd": 1.0, "gd449_multi": 1.0,
+                   "ukb_synth": 0.1, "large_gwas_sharded": 1.0}
 
 
 def card_line() -> str:
@@ -1148,6 +1174,317 @@ def phase_mesh_nccl(pt, oracle):
                 seconds=mesh_s)
 
 
+def dc_verbose(fn):
+    """``fn()`` with eigh_dc's per-split lines on (PYGEMMA_TPU_DC_VERBOSE):
+    returns (its result, the lines), echoing the lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    os.environ["PYGEMMA_TPU_DC_VERBOSE"] = "1"
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        os.environ.pop("PYGEMMA_TPU_DC_VERBOSE", None)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    return out, lines
+
+
+def dc_split_stats(lines, n):
+    """The depth-0 split of an n x n eigh_dc from its verbose lines: sign
+    attempts, the accepted attempt's schedule rows and polish rounds, the
+    NaN rescales, the range-find retries, r_lo and the accepted coupling."""
+    import re
+
+    head = f"[eigh_dc] n={n} depth=0 "
+    rows = [re.search(r"sched=(\d+) polish=(\d+)", line)
+            for line in lines if line.startswith(head + "attempt=")
+            and "sched=" in line]
+    check(bool(rows), f"no depth-0 split line for n={n}: {lines[:5]}")
+    split = [re.search(r"r_lo=(\d+)", line) for line in lines
+             if line.startswith(head + "split")]
+    coupling = [re.search(r"coupling ([0-9.e+-]+)", line) for line in lines
+                if line.startswith(head + "ranges+pencil+coupling")]
+    return dict(
+        sign_attempts=len(rows), sched_rows=int(rows[-1].group(1)),
+        polish_rounds=int(rows[-1].group(2)),
+        sign_steps=sum(int(m.group(1)) + int(m.group(2)) for m in rows),
+        nan_rescales=sum(line.startswith(head) and "NaN at boost" in line
+                         for line in lines),
+        range_retries=sum(line.startswith(head + "retry range")
+                          for line in lines),
+        r_lo=int(split[0].group(1)), coupling=float(coupling[0].group(1)),
+        repair_rounds=sum("residual repair round" in line for line in lines))
+
+
+def dc_held_to_cusolver(A, ev, U, what):
+    """An eigh_dc result (ev, U) of A against cuSOLVER's eigenvalues of A,
+    with tests/test_eigh_dc.py's tolerances, and its certificate: per-pair
+    residuals below DC_RESID * max|ev| and max |U'U - I| below DC_ORTH.
+    Returns (cuSOLVER's seconds, the errors)."""
+    import torch
+
+    from pygemma_tpu_torch.core.eigh_dc import _pair_residuals
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ev_ref = torch.linalg.eigvalsh(A)
+    torch.cuda.synchronize()
+    ref_s = time.time() - t0
+    scale = float(ev_ref.abs().max())
+    ev_err = float((ev.double() - ev_ref.double()).abs().max())
+    ok = ((ev.double() - ev_ref.double()).abs()
+          <= DC_EV_ATOL * scale + DC_EV_RTOL * ev_ref.double().abs())
+    check(bool(ok.all()), f"{what}: eigenvalues off cuSOLVER's by "
+                          f"{ev_err:.3e} (max|ev| {scale:.3e})")
+    s, _, _ = _pair_residuals(A, U, ev)
+    resid = float(s.max())
+    eye = torch.matmul(U.T, U)
+    eye.diagonal().sub_(1.0)
+    orth = float(eye.abs().max())
+    del eye, s
+    check(resid < DC_RESID * scale and orth < DC_ORTH,
+          f"{what}: certificate max resid {resid:.3e} (limit "
+          f"{DC_RESID * scale:.3e}), max |U'U - I| {orth:.3e}")
+    return ref_s, dict(max_ev_err=ev_err, max_ev_err_rel=ev_err / scale,
+                       max_resid=resid, max_resid_rel=resid / scale,
+                       max_orth=orth)
+
+
+def phase_dc_large(pt, gk, large, ctx):
+    """Phase 12a: eigh_backend="dc" on the large-GWAS path's 16,384 x 16,384
+    Gram (``lowrank_top_basis``), held to cuSOLVER's, then a warm scan of
+    the cohort on the dc basis held to phase 5's table."""
+    import torch
+
+    from pygemma_tpu_torch import api
+    from pygemma_tpu_torch.core import lowrank
+
+    lrk, cfg = ctx["lrk"], ctx["cfg"]
+    real = lowrank.auto_eigendecompose
+    seen = {}
+
+    def spy(A, backend="auto", dtype=None, device="cuda"):
+        out = real(A, backend=backend, dtype=dtype, device=device)
+        seen.update(A=A, ev=out[0], V=out[1])
+        return out
+
+    api._EIGEN_DEV_CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    lowrank.auto_eigendecompose = spy
+    try:
+        t0 = time.time()
+        basis, lines = dc_verbose(
+            lambda: lowrank.lowrank_top_basis(lrk, "dc", timings=stages))
+        torch.cuda.synchronize()
+        top_s = time.time() - t0
+    finally:
+        lowrank.auto_eigendecompose = real
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(basis.U_top).all()), "dc top basis not finite")
+    del basis
+    split = dc_split_stats(lines, PK_LARGE)
+    cus_s, errs = dc_held_to_cusolver(seen["A"], seen["ev"], seen["V"],
+                                      f"dc at n={PK_LARGE}")
+    seen.clear()
+    torch.cuda.empty_cache()
+    print(f"dc: n={PK_LARGE} Gram: top basis {top_s:.2f} s (Gram eigh "
+          f"{stages['gram_eigh_s']:.2f} s) against phase 5's cuSOLVER "
+          f"{large['top_basis_s']:.2f} s (Gram eigh "
+          f"{large['top_basis_stages']['gram_eigh_s']:.2f} s; eigvalsh here "
+          f"{cus_s:.2f} s); depth-0 split: {split['sign_attempts']} sign "
+          f"attempt(s), {split['sched_rows']} schedule rows + "
+          f"{split['polish_rounds']} polish rounds, {split['range_retries']} "
+          f"range retries, r_lo {split['r_lo']}, coupling "
+          f"{split['coupling']:.2e}; peak device memory {peak / 2**30:.2f} "
+          f"GiB; against cuSOLVER max |d ev| / max|ev| "
+          f"{errs['max_ev_err_rel']:.3e}; certificate max resid / max|ev| "
+          f"{errs['max_resid_rel']:.3e}, max |U'U - I| {errs['max_orth']:.3e}",
+          flush=True)
+
+    # the scan on the dc basis: the device cache keys a basis by kinship,
+    # not by backend, so it is cleared first; the first call computes and
+    # caches the dc basis, the second is the path's (warm) run
+    dc_cfg = cfg.replace(eigh_backend="dc")
+    api._EIGEN_DEV_CACHE.clear()
+    t0 = time.time()
+    pt.pygemma(ctx["y"], ctx["X"], ctx["W"], lrk, config=dc_cfg)
+    cold_s = time.time() - t0
+    gk.fused_grams.launches = 0
+    t0 = time.time()
+    df = pt.pygemma(ctx["y"], ctx["X"], ctx["W"], lrk, config=dc_cfg)
+    scan_s = time.time() - t0
+    launches = gk.fused_grams.launches
+    check(launches > 0, "the kernel was never launched on the dc path")
+    d = lowrank_close(df, ctx["table"], "dc basis against cuSOLVER's")
+    api._EIGEN_DEV_CACHE.clear()
+    torch.cuda.empty_cache()
+    print(f"dc: scan on the dc basis cold {cold_s:.2f} s, warm {scan_s:.2f} "
+          f"s (phase 5: {large['scan_s']:.2f} s); kernel launches "
+          f"{launches}; against phase 5's table max|dlog10 p|={d:.3e}",
+          flush=True)
+    return dict(n=PK_LARGE, top_basis_s=top_s, top_basis_stages=stages,
+                phase5_top_basis_s=large["top_basis_s"],
+                phase5_gram_eigh_s=large["top_basis_stages"]["gram_eigh_s"],
+                eigvalsh_s=cus_s, split=split, peak_gib=peak / 2**30,
+                **errs, cold_e2e_s=cold_s, scan_s=scan_s, launches=launches,
+                vs_phase5_dlogp=d)
+
+
+def phase_dc_dense(K, eigh_s):
+    """Phase 12b: ``auto_eigendecompose(K, "dc")`` on phase 6's dense
+    10,000 x 10,000 K (n <= 1.3 max_block: the edge-shave split), held to
+    cuSOLVER's eigenvalues."""
+    import numpy as np
+    import torch
+
+    from pygemma_tpu_torch.core.eigen import auto_eigendecompose
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    (ev, U), lines = dc_verbose(
+        lambda: auto_eigendecompose(K, "dc", np.float32, "cuda"))
+    torch.cuda.synchronize()
+    dc_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    split = dc_split_stats(lines, N_FULL)
+    Kd = torch.as_tensor(K, device="cuda")
+    cus_s, errs = dc_held_to_cusolver(Kd, ev, U, f"dc at n={N_FULL}")
+    del Kd, ev, U
+    torch.cuda.empty_cache()
+    print(f"dc: dense n={N_FULL} K: {dc_s:.2f} s against cuSOLVER's "
+          f"{eigh_s:.2f} s (eigh) and {cus_s:.2f} s (eigvalsh); depth-0 "
+          f"split: {split['sign_attempts']} sign attempt(s), "
+          f"{split['sched_rows']} schedule rows + {split['polish_rounds']} "
+          f"polish rounds, {split['range_retries']} range retries, r_lo "
+          f"{split['r_lo']}; peak device memory {peak / 2**30:.2f} GiB; "
+          f"against cuSOLVER max |d ev| / max|ev| "
+          f"{errs['max_ev_err_rel']:.3e}; certificate max resid / max|ev| "
+          f"{errs['max_resid_rel']:.3e}", flush=True)
+    return dict(n=N_FULL, seconds=dc_s, cusolver_eigh_s=eigh_s,
+                eigvalsh_s=cus_s, split=split, peak_gib=peak / 2**30, **errs)
+
+
+def _run_script(path, argv):
+    """A workload script's ``main()`` in this process with ``sys.argv``
+    set (as tests/test_experiments.py runs them); returns its seconds."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "workload_" + Path(path).stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    old = sys.argv
+    sys.argv = [str(path)] + argv
+    t0 = time.time()
+    try:
+        mod.main()
+    finally:
+        sys.argv = old
+    return time.time() - t0
+
+
+def finite_table(path, sep="\t", share=0.99):
+    """Rows of a written table whose p_wald is finite, checked against
+    ``share``; returns the table's row count."""
+    import numpy as np
+    import pandas as pd
+
+    df = pd.read_csv(path, sep=sep)
+    fin = float(np.isfinite(df["p_wald"].to_numpy()).mean())
+    check(len(df) > 0 and fin >= share,
+          f"{path}: {len(df)} rows, finite p_wald {fin:.4f}")
+    return len(df)
+
+
+def phase_workloads(pt, oracle, tmp):
+    """Phase 13: the torch workload scripts and the five scenarios of
+    configs/run_config_torch.py on the card, in this process."""
+    import numpy as np
+
+    from pygemma_tpu_torch import api
+    from pygemma_tpu_torch.io import rawbin
+
+    exp = ROOT / "experiments"
+    out = {}
+    api._EIGEN_DEV_CACHE.clear()
+
+    def run(name, path, argv, tables, sep="\t", share=0.99):
+        secs = _run_script(path, argv)
+        rows = [finite_table(t, sep, share) for t in tables]
+        out[name] = dict(seconds=secs, rows=rows)
+        print(f"workload: {name} {secs:.2f} s; tables "
+              + ", ".join(f"{os.path.relpath(t, tmp)} ({r} rows)"
+                          for t, r in zip(tables, rows)), flush=True)
+        api._EIGEN_DEV_CACHE.clear()
+
+    d = os.path.join(tmp, "animal")
+    run("animal_gwas", exp / "animal_gwas" / "run_gwas_torch.py",
+        ["--out-dir", d], [os.path.join(d, "assoc.tsv")])
+    d = os.path.join(tmp, "case_control")
+    run("case_control", exp / "case_control" / "run_torch.py",
+        ["--out-dir", d], [os.path.join(d, "lmm.tsv")])
+    d = os.path.join(tmp, "eqtl")
+    os.environ.update(TASK_ID="0", TASK_COUNT="1")
+    try:
+        run("eqtl", exp / "eqtl" / "run_genes_torch.py",
+            ["--out-dir", d, "--summary"],
+            [os.path.join(d, f"gene{g}", f) for g in range(8)
+             for f in ("lmm.tsv", "linreg.tsv")])
+    finally:
+        for k in ("TASK_ID", "TASK_COUNT"):
+            os.environ.pop(k, None)
+    d = os.path.join(tmp, "ukb_afr")
+    run("ukb_afr", exp / "ukb_afr" / "run_chrom_torch.py",
+        ["--out-dir", d, "--null-diagnostics"],
+        [os.path.join(d, f"pygemma_results_chr{c}_pheno0.csv")
+         for c in (20, 21)], sep=",", share=0.8)
+    # large_gwas on pre-rotated rawbins of a small fixture
+    y, G, W, K = oracle.simulate(n=LG_N, p=LG_P, c=3, seed=13)
+    ev, U = np.linalg.eigh(K)
+    d = os.path.join(tmp, "large_gwas")
+    os.makedirs(d, exist_ok=True)
+    for name, M in (("geno", U.T @ G), ("pheno", (U.T @ y)[:, None]),
+                    ("covar", U.T @ W)):
+        rawbin.write_rawbin(os.path.join(d, name), M.astype(np.float32))
+    np.savetxt(os.path.join(d, "eig.txt"), np.maximum(ev, 0.0))
+    run("large_gwas", exp / "large_gwas" / "run_pygemma_torch.py",
+        ["--geno", os.path.join(d, "geno"), "--pheno",
+         os.path.join(d, "pheno"), "--covar", os.path.join(d, "covar"),
+         "--eigenvalues", os.path.join(d, "eig.txt"), "--out",
+         os.path.join(d, "out.txt")], [os.path.join(d, "out.txt")])
+
+    # the five scenarios at the scales of configs/run_config.py's docstring
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "run_config_torch", ROOT / "configs" / "run_config_torch.py")
+    cfg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cfg)
+    for name, scale in SCENARIO_SCALES.items():
+        kw = ({"cache_dir": os.path.join(tmp, "ukb_synth_cache")}
+              if name == "ukb_synth" else {})
+        t0 = time.time()
+        df = getattr(cfg, name)(scale, device="cuda", **kw)
+        secs = time.time() - t0
+        fin = float(np.isfinite(df["p_wald"].to_numpy()).mean())
+        check(fin >= 0.99, f"scenario {name}: finite p_wald {fin:.4f}")
+        out[f"scenario {name}"] = dict(seconds=secs, scale=scale,
+                                       rows=len(df))
+        print(f"workload: scenario {name} (scale {scale}) {secs:.2f} s; "
+              f"{len(df)} rows, finite p_wald {fin:.4f}", flush=True)
+        api._EIGEN_DEV_CACHE.clear()
+    return out
+
+
 def phase_full(pt, gk, solver):
     import numpy as np
     import torch
@@ -1208,12 +1545,14 @@ def phase_full(pt, gk, solver):
     print(f"full: first block kernel on vs off max|dlog10 p|={d:.3e} "
           f"beta max rel {rel.max():.3e} (median {np.median(rel):.3e})",
           flush=True)
+    # 12b. the divide-and-conquer eigh of this K, before the profiler runs
+    dc = phase_dc_dense(K, eigh_s)
     prof = profile_blocks(pt, gk, y, X[:, :PROFILE_BLOCKS * BLOCK], W, K, cfg,
                           BLOCK)
     print(json.dumps({"profile": prof}), flush=True)
     return dict(launches=launches, host_syncs=syncs, eigh_s=eigh_s,
                 e2e_s=e2e_s, scan_s=scan_s, snps_per_s=P_FULL / scan_s,
-                peak_gib=peak / 2**30, finite_p=finite)
+                peak_gib=peak / 2**30, finite_p=finite), dc
 
 
 def profile_blocks(pt, gk, y, X, W, K, cfg, block):
@@ -1321,8 +1660,13 @@ def main() -> int:
         mesh = phase_mesh_large(ctx, large, ctx["prefix"], tmp)
         mesh_cli = phase_mesh_cli(tmp, cli_files)
 
-        # 6. full width, dense K (its profile comes after every timed scan)
-        full = phase_full(pt, gk, solver)
+        # 12a. the divide-and-conquer eigh of the cohort's 16,384 Gram and
+        # a scan on its basis
+        dc_large = phase_dc_large(pt, gk, large, ctx)
+
+        # 6. full width, dense K (its profile comes after every timed
+        # scan), and 12b. the divide-and-conquer eigh of its K
+        full, dc_dense = phase_full(pt, gk, solver)
 
         # where the large path's warm blocks spend their time
         large["profile"] = profile_blocks(
@@ -1339,6 +1683,10 @@ def main() -> int:
     # 11. (c) a one-rank NCCL mesh in this process
     mesh_nccl = phase_mesh_nccl(pt, oracle)
 
+    # 13. the workload layer on the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_work_") as tmp:
+        workloads = phase_workloads(pt, oracle, tmp)
+
     # 8. records
     main_row = rows["kmax3"]
     record = {"kernels": [{
@@ -1349,7 +1697,7 @@ def main() -> int:
         "launches": (full["launches"] + large["launches"]
                      + multi["launches"] + cli["launches_run1"]
                      + cli["launches_run2"] + mesh["launches"]
-                     + mesh_cli["launches"]),
+                     + mesh_cli["launches"] + dc_large["launches"]),
         "launches_by_path": {
             f"dense n={N_FULL} p={P_FULL}": full["launches"],
             f"implicit n={N_LARGE} p={P_LARGE} p_k={PK_LARGE}":
@@ -1364,7 +1712,9 @@ def main() -> int:
             f"p_k={PK_LARGE} (summed over ranks)": mesh["launches"],
             f"mesh {MESH_RANKS} ranks cli dense pheno 0 wald+lrt+score "
             f"n={N_FULL} p={P_FULL} (summed over ranks)":
-                mesh_cli["launches"]},
+                mesh_cli["launches"],
+            f"implicit on the eigh_dc basis n={N_LARGE} p={P_LARGE} "
+            f"p_k={PK_LARGE}": dc_large["launches"]},
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1386,6 +1736,9 @@ def main() -> int:
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"mesh": {"large": mesh, "cli": mesh_cli,
                                "nccl": mesh_nccl}}), flush=True)
+    print(json.dumps({"eigh_dc": {"large": dc_large, "dense": dc_dense}}),
+          flush=True)
+    print(json.dumps({"workloads": workloads}), flush=True)
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

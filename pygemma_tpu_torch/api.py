@@ -19,8 +19,9 @@ each SNP block streams once and is rotated, or prepared in the top space,
 once for all of them; otherwise phenotypes are scanned one column at a time.
 With ``mesh=`` (:func:`pygemma_tpu_torch.parallel.mesh.make_mesh`) the scan
 is SNP-sharded over the ranks of a ``torch.distributed`` group, one process
-each, and every rank returns the same table.  The divide-and-conquer eigh
-raises ``NotImplementedError``.
+each, and every rank returns the same table.  ``eigh_backend="dc"`` runs
+the spectral divide-and-conquer eigh (core/eigh_dc.py); under a mesh rank 0
+computes the basis and broadcasts it, as for every backend.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ _STREAMED = (PackedMatrix, QuantizedMatrix)
 _EIGEN_DEV_CACHE: dict = {}
 
 
-def _reject_unported(K, X, mesh, cfg: GwasConfig) -> None:
+def _reject_unported(K, X, mesh) -> None:
     for name, obj in (("X", X), ("K", K)):
         if is_jax_object(obj):
             raise TypeError(
@@ -92,9 +93,6 @@ def _reject_unported(K, X, mesh, cfg: GwasConfig) -> None:
         raise TypeError(
             f"mesh is a {type(mesh).__module__}.{type(mesh).__name__}; build "
             "it with pygemma_tpu_torch.parallel.mesh.make_mesh")
-    if cfg.eigh_backend == "dc":
-        raise NotImplementedError(
-            "eigh_backend='dc' is not ported yet (later slice: large-n eigh)")
 
 
 def _result_keys(cfg) -> list:
@@ -364,7 +362,7 @@ def pygemma(
         cfg = cfg.replace(grid=True)
     if tests is not None and tuple(tests) != cfg.tests:
         cfg = cfg.replace(tests=tuple(tests))
-    _reject_unported(K, X, mesh, cfg)
+    _reject_unported(K, X, mesh)
     if mesh is not None:
         if rank_device(mesh).type != dev.type:
             raise ValueError(f"the mesh's ranks run on {mesh.device_type}, "

@@ -38,9 +38,10 @@ class GwasConfig:
     dtype: str = "float32"
     #: clamp for denominators / quadratic forms (pygemma_model.pyx:39)
     min_val: float = MIN_VAL
-    #: "auto" | "device" | "host" -- where the kinship eigh runs.  "auto"
-    #: falls back to host LAPACK when the device eigh's workspace cannot
-    #: fit the card's free memory (core/eigen.py::auto_eigendecompose).
+    #: "auto" | "device" | "host" | "dc" -- where the kinship eigh runs.
+    #: "auto" falls back to host LAPACK when the device eigh's workspace
+    #: cannot fit the card's free memory; "dc" is the spectral divide and
+    #: conquer (core/eigen.py::auto_eigendecompose, core/eigh_dc.py).
     eigh_backend: str = "auto"
     #: implicit-complement scan for LowRankKinship inputs.  Kept so that a
     #: JAX-package config carries over field by field; low-rank kinships

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, torch_dtype
+from .eigh_dc import eigh_dc
 
 
 def eigendecompose(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,10 +76,11 @@ def auto_eigendecompose(K, backend: str = "auto", dtype=None,
     ``K`` is a host array or a tensor; a tensor already on ``device`` (the
     low-rank path's p_k x p_k Gram) is decomposed there without a trip
     through the host.  "device" runs ``torch.linalg.eigh`` on ``device``;
-    "host" runs LAPACK on the host and copies the result over; "auto" takes
-    the device eigh on a CPU device, and on a CUDA device when
-    :func:`device_eigh_fits`, else the host.  The JAX package's "dc"
-    (spectral divide and conquer) backend is not ported.
+    "host" runs LAPACK on the host and copies the result over; "dc" runs the
+    spectral divide and conquer (:func:`.eigh_dc.eigh_dc`) on ``device`` and
+    raises if a split fails; "auto" takes the device eigh on a CPU device,
+    and on a CUDA device when :func:`device_eigh_fits`, else the host.
+    "auto" never takes "dc": cuSOLVER needs less memory for the same n.
     """
     device = resolve_device(device)
     if isinstance(K, torch.Tensor):
@@ -86,10 +88,8 @@ def auto_eigendecompose(K, backend: str = "auto", dtype=None,
     else:
         Kt = torch.as_tensor(np.asarray(K, dtype=dtype))
     if backend == "dc":
-        raise NotImplementedError(
-            "eigh_backend='dc' is not ported; on the card use 'device' or "
-            "'host' (a later slice decides whether the divide-and-conquer "
-            "eigh is needed)")
+        ev, U = eigh_dc(Kt.to(device))
+        return torch.clamp_min(ev, 0.0), U
     if backend not in ("auto", "device", "host"):
         raise ValueError(f"unknown eigh_backend {backend!r}")
     on_device = backend == "device" or (

@@ -1,4 +1,5 @@
-"""ctypes binding of the host .bed decoder (``bed_reader.cpp``).
+"""ctypes binding of the host readers in ``bed_reader.cpp``: the .bed
+decoder and the filtered ASCII matrix reader.
 
 The shared library is built at first use with ``g++ -O3`` into the
 package's ``_build/`` directory (listed in .gitignore), named by a hash of
@@ -68,6 +69,11 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p,
             ]
+            lib.pygemma_read_filtered_matrix.restype = ctypes.c_int
+            lib.pygemma_read_filtered_matrix.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p,
+            ]
             _lib = lib
         return _lib
 
@@ -87,4 +93,34 @@ def decode_bed(path: str, n: int, bytes_per_snp: int, snp_idx: np.ndarray,
         len(snp_idx), int(count_a1), n_threads, out.ctypes.data)
     if rc != 0:
         raise OSError(f"native .bed decode failed (rc={rc}) for {path}")
+    return out
+
+
+def available() -> bool:
+    """Whether the library builds and loads here.  Nothing falls back on
+    the answer: the readers raise when it is False."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def read_filtered_matrix(path: str, indices) -> np.ndarray:
+    """The (k, k) float32 submatrix of a whitespace-separated ASCII matrix
+    file at the rows and columns ``indices`` (sorted here), streamed one line
+    at a time: the reference's matrix_reader
+    (experiments/benchmarks/matrix_reader.cpp)."""
+    indices = np.sort(np.asarray(indices, dtype=np.int64).reshape(-1))
+    if len(indices) and (indices[0] < 0
+                         or (np.diff(indices) == 0).any()):
+        raise ValueError("indices must be distinct and non-negative")
+    lib = _load()
+    idx = np.ascontiguousarray(indices)
+    out = np.empty((len(idx), len(idx)), dtype=np.float32)
+    rc = lib.pygemma_read_filtered_matrix(os.fsencode(path), idx.ctypes.data,
+                                          len(idx), out.ctypes.data)
+    if rc != 0:
+        raise OSError(f"native filtered matrix read failed (rc={rc}) for "
+                      f"{path}")
     return out

@@ -1,11 +1,16 @@
-// Host-side PLINK .bed decoder for pygemma_tpu_torch, exposed through a C
-// ABI for ctypes (native/bed_native.py builds it with g++ at first use).
+// Host-side readers for pygemma_tpu_torch, exposed through a C ABI for
+// ctypes (native/bed_native.py builds them with g++ at first use).  This is
+// host code, not device kernels.
 //
-// Role parity with the reference's native IO layer: a multithreaded .bed
-// 2-bit decoder (the reference uses pysnptools for this,
-// experiments/wtccc/run_pygemma.py:381-400).  This is host code, not a
-// device kernel: it fills the float32 (n, p) dosage matrix that the dense
-// CLI path hands to the scan.
+// Role parity with the reference's native IO layer:
+//   * pygemma_decode_bed: a multithreaded .bed 2-bit decoder (the reference
+//     uses pysnptools for this, experiments/wtccc/run_pygemma.py:381-400);
+//     it fills the float32 (n, p) dosage matrix that the dense CLI path
+//     hands to the scan.
+//   * pygemma_read_filtered_matrix: stream a large whitespace-separated
+//     ASCII matrix keeping only the rows and columns of a sorted index set,
+//     one line at a time (the reference's Rcpp matrix_reader,
+//     experiments/benchmarks/matrix_reader.cpp:29-101).
 //
 // Each thread decodes tiles of kTile SNPs: it reads the tile's SNP-major
 // rows, then writes each sample's kTile dosages as one contiguous run of
@@ -16,6 +21,8 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
+#include <string>
 #include <thread>
 #include <vector>
 
@@ -101,6 +108,69 @@ int pygemma_decode_bed(const char* path, int64_t n_samples,
     if (e) return e;
   }
   return 0;
+}
+
+// Stream the whitespace-separated ASCII matrix at `path`, keeping the
+// entries whose row AND column index are in idx[0..n_idx) (sorted
+// ascending), into the float32 (n_idx, n_idx) row-major matrix `out`.  Lines
+// are read in 1 MiB chunks; no row is kept beyond the one being scanned.
+// Returns 0 on success, 1 when the file cannot be opened, 4 when the file
+// ends before the last wanted row and 5 when a wanted row is shorter than
+// the last wanted column.
+int pygemma_read_filtered_matrix(const char* path, const int64_t* idx,
+                                 int64_t n_idx, float* out) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return 1;
+  int64_t row = 0;   // the file's current row
+  int64_t wrow = 0;  // the next wanted row
+  int err = 0;
+  auto process_line = [&](const char* line, size_t len) {
+    if (wrow < n_idx && row == idx[wrow]) {
+      int64_t col = 0, wcol = 0;
+      const char* p = line;
+      const char* end = line + len;
+      while (p < end && wcol < n_idx) {
+        while (p < end && (*p == ' ' || *p == '\t' || *p == '\r')) ++p;
+        if (p >= end) break;
+        if (col == idx[wcol]) {
+          out[wrow * n_idx + wcol] = std::strtof(p, nullptr);
+          ++wcol;
+        }
+        while (p < end && *p != ' ' && *p != '\t' && *p != '\r') ++p;
+        ++col;
+      }
+      if (wcol < n_idx) err = 5;
+      ++wrow;
+    }
+    ++row;
+  };
+
+  constexpr size_t kChunk = 1 << 20;
+  std::vector<char> buf(kChunk);
+  std::string carry;  // a line cut by a chunk boundary
+  size_t got;
+  while (!err && wrow < n_idx &&
+         (got = std::fread(buf.data(), 1, kChunk, f)) > 0) {
+    size_t start = 0;
+    for (size_t i = 0; i < got && !err && wrow < n_idx; ++i) {
+      if (buf[i] != '\n') continue;
+      if (carry.empty()) {
+        process_line(&buf[start], i - start);
+      } else {
+        carry.append(&buf[start], i - start);
+        process_line(carry.data(), carry.size());
+        carry.clear();
+      }
+      start = i + 1;
+    }
+    if (start < got) carry.append(&buf[start], got - start);
+  }
+  if (!err && wrow < n_idx && !carry.empty()) {
+    process_line(carry.data(), carry.size());
+  }
+  std::fclose(f);
+  if (err) return err;
+  return wrow == n_idx ? 0 : 4;
 }
 
 }  // extern "C"

@@ -1,1 +1,1 @@
-from .plot import manhattan_plot, qq_plot  # noqa: F401
+from .plot import available, manhattan_plot, qq_plot  # noqa: F401

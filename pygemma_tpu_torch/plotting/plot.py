@@ -16,6 +16,13 @@ from typing import Optional, Sequence
 import numpy as np
 
 
+def available() -> bool:
+    """Whether matplotlib is installed, i.e. whether plots can be drawn."""
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
 def _mpl():
     import matplotlib
 

@@ -25,6 +25,7 @@ PORT_MODULES = [
     "pygemma_tpu_torch.convert", "pygemma_tpu_torch.sim",
     "pygemma_tpu_torch.device",
     "pygemma_tpu_torch.core.assoc", "pygemma_tpu_torch.core.eigen",
+    "pygemma_tpu_torch.core.eigh_dc",
     "pygemma_tpu_torch.core.grams", "pygemma_tpu_torch.core.lowrank",
     "pygemma_tpu_torch.core.reml", "pygemma_tpu_torch.core.solver",
     "pygemma_tpu_torch.io.packed", "pygemma_tpu_torch.io.plink",
@@ -79,7 +80,9 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT))
     for p in list((ROOT / "pygemma_tpu_torch").rglob("*.py"))
+    + list((ROOT / "experiments").glob("*/*_torch.py"))
     + [ROOT / "chip_smoke.py", ROOT / "k1_ablation.py",
+       ROOT / "configs" / "run_config_torch.py",
        ROOT / "tests" / "test_torch_cuda.py"]))
 def test_source_imports_no_jax(path):
     bad = [m for m in _imports(ROOT / path) if _forbidden(m)]
@@ -178,13 +181,11 @@ def test_entry_points_refuse_tf32(monkeypatch):
         torch.set_float32_matmul_precision("highest")
 
 
-@pytest.mark.parametrize("case",
-                         ["lowrank", "quantized", "packed", "mesh", "dc"])
+@pytest.mark.parametrize("case", ["lowrank", "quantized", "packed", "mesh"])
 def test_unported_inputs_raise(case):
     """The JAX package's own matrix and kinship classes are refused with a
     TypeError that names the converter, and its mesh (or any object that is
-    not the port's mesh) with one that names the port's ``make_mesh``; what
-    the port does not cover yet raises NotImplementedError."""
+    not the port's mesh) with one that names the port's ``make_mesh``."""
     from pygemma_tpu.core.lowrank import LowRankKinship
     from pygemma_tpu.io.packed import PackedMatrix
     from pygemma_tpu.io.quantized import QuantizedMatrix
@@ -199,13 +200,10 @@ def test_unported_inputs_raise(case):
         X = QuantizedMatrix.from_dosages(codes.astype(np.int8))
     elif case == "packed":
         X = PackedMatrix.from_codes(codes.astype(np.uint8))
-    elif case == "mesh":
+    else:
         from pygemma_tpu.parallel.mesh import make_mesh
 
         err, match = TypeError, "parallel.mesh.make_mesh"
         kw["mesh"] = make_mesh(snp=2)
-    else:
-        err, match = NotImplementedError, None
-        kw["config"] = tcfg.GwasConfig(eigh_backend="dc")
     with pytest.raises(err, match=match):
         pt.pygemma(y, X, W, K, device="cpu", **kw)

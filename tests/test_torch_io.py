@@ -413,3 +413,41 @@ def test_convert_streamed_matrices_from_jax(rng, tmp_path, kind):
         assert got.cache_token.startswith(J.cache_token)
     with pytest.raises(TypeError, match="no port counterpart"):
         convert.from_jax(pj.GwasConfig())
+
+
+def test_read_filtered_matrix_is_bit_equal_to_jax(rng, tmp_path):
+    """tests/test_io_preprocess.py's case, and a 400 x 400 file whose lines
+    cross the reader's 1 MiB chunks: the port's native reader returns the
+    JAX package's matrix bit for bit."""
+    from pygemma_tpu.native import bed_native as jnative
+    from pygemma_tpu_torch.native import bed_native
+
+    assert bed_native.available()
+    for n, idx, fmt in ((30, [29, 2, 11, 7], "%.6f"),
+                        (400, [0, 5, 131, 262, 263, 399], "%.9g")):
+        M = rng.normal(size=(n, n)).astype(np.float32)
+        path = str(tmp_path / f"mat{n}.txt")
+        np.savetxt(path, M, fmt=fmt)
+        got = bed_native.read_filtered_matrix(path, idx)
+        np.testing.assert_array_equal(
+            got, jnative.read_filtered_matrix(path, np.asarray(idx)))
+        srt = np.sort(idx)
+        np.testing.assert_allclose(got, M[np.ix_(srt, srt)], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_read_filtered_matrix_refuses_bad_input(tmp_path):
+    from pygemma_tpu_torch.native import bed_native
+
+    path = str(tmp_path / "m.txt")
+    np.savetxt(path, np.ones((4, 6)), fmt="%.3f")
+    with pytest.raises(OSError, match="rc=1"):
+        bed_native.read_filtered_matrix(str(tmp_path / "none.txt"), [0])
+    with pytest.raises(OSError, match="rc=4"):  # past the last row
+        bed_native.read_filtered_matrix(path, [1, 5])
+    with open(path, "a") as f:
+        f.write("1 2\n")
+    with pytest.raises(OSError, match="rc=5"):  # a row short of column 4
+        bed_native.read_filtered_matrix(path, [3, 4])
+    with pytest.raises(ValueError, match="distinct"):
+        bed_native.read_filtered_matrix(path, [2, 2])
