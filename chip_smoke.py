@@ -74,6 +74,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    5's table within the implicit-basis contract; (b) after phase 6's timed
    scan, ``auto_eigendecompose(K, "dc")`` on its dense n = 10,000 K (the
    edge-shave split), held to cuSOLVER's eigenvalues;
+14. (after phase 6) the sample-sharded eigendecomposition: two ranks
+   sharing the card over gloo on ``make_mesh(snp=1, sample=2)``, one group
+   for both parts: (a) phase 6's dense configuration through ``pygemma(...,
+   mesh=)``, eigh_dc's products split over the two ranks (the root's edge
+   shave; one leaf a rank), its eigenvalues held to cuSOLVER's and its
+   certificate as in phase 12, both ranks' tables identical and held to
+   phase 6's, the eigh's seconds, each rank's peak memory and bytes sent,
+   K1's launches summed over the ranks; (b) phase 12a's 16,384 Gram through
+   ``sharded_eigh_fn``, held the same way, both ranks' bytes identical;
 13. (last) the workload layer in this process: each
    ``experiments/*/*_torch.py`` script's ``main()`` at its defaults
    (large_gwas on pre-rotated rawbins of a 2,000 x 8,192 fixture) and the
@@ -123,6 +132,7 @@ NCCL_N, NCCL_P, NCCL_BLOCK = 1_500, 4_096, 2_048
 # phase 12: eigh_dc against cuSOLVER, tests/test_eigh_dc.py's tolerances
 DC_EV_RTOL, DC_EV_ATOL = 5e-4, 2e-4  # the atol times max|ev|
 DC_RESID, DC_ORTH = 5e-4, 1e-3  # residual times max|ev|; max |U'U - I|
+SHARD_RANKS = 2  # phase 14: sample ranks sharing the one card
 # phase 13: large_gwas's pre-rotated fixture, and the scenarios' scales
 # (configs/run_config.py's docstring)
 LG_N, LG_P = 2_000, 8_192
@@ -1254,10 +1264,12 @@ def dc_held_to_cusolver(A, ev, U, what):
                        max_orth=orth)
 
 
-def phase_dc_large(pt, gk, large, ctx):
+def phase_dc_large(pt, gk, large, ctx, tmp):
     """Phase 12a: eigh_backend="dc" on the large-GWAS path's 16,384 x 16,384
     Gram (``lowrank_top_basis``), held to cuSOLVER's, then a warm scan of
-    the cohort on the dc basis held to phase 5's table."""
+    the cohort on the dc basis held to phase 5's table.  The Gram is kept
+    in ``tmp`` for phase 14b."""
+    import numpy as np
     import torch
 
     from pygemma_tpu_torch import api
@@ -1292,6 +1304,7 @@ def phase_dc_large(pt, gk, large, ctx):
     split = dc_split_stats(lines, PK_LARGE)
     cus_s, errs = dc_held_to_cusolver(seen["A"], seen["ev"], seen["V"],
                                       f"dc at n={PK_LARGE}")
+    np.save(os.path.join(tmp, "gram.npy"), seen["A"].cpu().numpy())
     seen.clear()
     torch.cuda.empty_cache()
     print(f"dc: n={PK_LARGE} Gram: top basis {top_s:.2f} s (Gram eigh "
@@ -1485,6 +1498,172 @@ def phase_workloads(pt, oracle, tmp):
     return out
 
 
+def shard_rank(tmp: str) -> None:
+    """Phase 14 in one rank of the group: (a) phase 6's dense run over
+    ``make_mesh(snp=1, sample=2)``, (b) phase 12a's Gram through
+    ``sharded_eigh_fn``; rank 0 holds each basis to cuSOLVER's.  Writes the
+    rank's tables and numbers under ``tmp``."""
+    import contextlib
+    import hashlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import pygemma_tpu_torch as pt
+    from pygemma_tpu_torch.ops import gram_kernel as gk
+    from pygemma_tpu_torch.parallel.dist import sharded_eigh_fn
+    from pygemma_tpu_torch.parallel.distributed import all_sum
+    from pygemma_tpu_torch.parallel.mesh import make_mesh
+    from pygemma_tpu_torch.parallel.slabs import Slabs
+
+    mesh = make_mesh(snp=1, sample=SHARD_RANKS)
+    rank = dist.get_rank()
+    rec = dict(rank=rank, backend=dist.get_backend())
+
+    def measured(fn):
+        """fn() with eigh_dc's lines on, from a barrier: (its result, its
+        lines, seconds, peak GiB, GiB sent by this rank)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        Slabs.sent_bytes = 0
+        dist.barrier()
+        t0 = time.time()
+        out, lines = dc_verbose(fn)
+        torch.cuda.synchronize()
+        return (out, lines, time.time() - t0,
+                torch.cuda.max_memory_allocated() / 2**30,
+                Slabs.sent_bytes / 2**30)
+
+    # (a) the dense path: the basis is split over the sample ranks
+    y, X, W, K = make_full_width()
+    cfg = pt.GwasConfig(snp_block=BLOCK)
+    pt.api._EIGEN_DEV_CACHE.clear()
+    log = io.StringIO()
+    gk.fused_grams.launches = 0
+    with contextlib.redirect_stderr(log):
+        df, lines, e2e_s, peak, sent = measured(
+            lambda: pt.pygemma(y, X, W, K, config=cfg, mesh=mesh, verbose=1))
+    launches = gk.fused_grams.launches
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(.+) - ([0-9.]+) s$", log.getvalue(), re.M)}
+    rec["dense"] = dict(e2e_s=e2e_s, peak_gib=peak, sent_gib=sent,
+                        launches=launches, stages=stages,
+                        launches_all_ranks=all_sum(launches))
+    np.save(os.path.join(tmp, f"shard_rank{rank}.npy"),
+            df.to_numpy(dtype=np.float64))
+    if rank == 0:
+        (ev, U), = pt.api._EIGEN_DEV_CACHE.values()
+        rec["dense"]["split"] = dc_split_stats(lines, N_FULL)
+        rec["dense"]["eigvalsh_s"], rec["dense"]["errs"] = \
+            dc_held_to_cusolver(torch.as_tensor(K, device="cuda"), ev, U,
+                                f"sample-sharded dc at n={N_FULL}")
+        del ev, U
+    pt.api._EIGEN_DEV_CACHE.clear()
+    del df, X, K
+    dist.barrier()
+
+    # (b) phase 12a's Gram: each rank takes its rows of the file's matrix
+    A = np.load(os.path.join(tmp, "gram.npy"), mmap_mode="r")
+    (ev, U), lines, secs, peak, sent = measured(
+        lambda: sharded_eigh_fn(mesh, cfg)(A))
+    digest = hashlib.sha1(ev.cpu().numpy())
+    digest.update(U.cpu().numpy())
+    rec["gram"] = dict(seconds=secs, peak_gib=peak, sent_gib=sent,
+                       sha1=digest.hexdigest())
+    if rank == 0:
+        rec["gram"]["split"] = dc_split_stats(lines, PK_LARGE)
+        rec["gram"]["eigvalsh_s"], rec["gram"]["errs"] = \
+            dc_held_to_cusolver(torch.as_tensor(np.asarray(A),
+                                                device="cuda"), ev, U,
+                                f"sample-sharded dc at n={PK_LARGE}")
+    with open(os.path.join(tmp, f"shard_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_sharded_eigh(full, full_table, dc_large, dc_dense, tmp):
+    """Phase 14: the sample-sharded eigendecomposition on two ranks sharing
+    the card (gloo)."""
+    import numpy as np
+
+    from pygemma_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.time()
+    spawn(shard_rank, SHARD_RANKS, (tmp,))
+    wall = time.time() - t0
+    recs = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(tmp, f"shard_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    check(all(rec["backend"] == "gloo" for rec in recs),
+          f"backends {[rec['backend'] for rec in recs]}, not gloo")
+    tabs = [np.load(os.path.join(tmp, f"shard_rank{r}.npy"))
+            for r in range(SHARD_RANKS)]
+    for r in range(1, SHARD_RANKS):
+        check(np.array_equal(tabs[0], tabs[r], equal_nan=True),
+              f"phase 14a: rank {r}'s table differs from rank 0's")
+        check(recs[r]["gram"]["sha1"] == recs[0]["gram"]["sha1"],
+              f"phase 14b: rank {r}'s (ev, U) bytes differ from rank 0's")
+    cols = list(full_table.columns)
+    check(tabs[0].shape == full_table.shape,
+          f"phase 14a table shape {tabs[0].shape}")
+    a = tabs[0][:, cols.index("p_wald")]
+    b = full_table["p_wald"].to_numpy()
+    check(np.array_equal(np.isnan(a), np.isnan(b)),
+          "phase 14a: NaN rows differ from phase 6's")
+    ok = ~np.isnan(b)
+    d = float(np.abs(np.log10(np.maximum(a[ok], 1e-300))
+                     - np.log10(np.maximum(b[ok], 1e-300))).max())
+    check(d < MESH_DLOGP, f"phase 14a vs phase 6: max |d log10 p| {d:.3e}")
+    dense, gram = recs[0]["dense"], recs[0]["gram"]
+    launches = dense["launches_all_ranks"]
+    check(launches > 0, "the kernel was never launched on the sharded path")
+    eigh_s = dense["stages"].get("eigendecomposition")
+    check(eigh_s is not None, f"rank 0's stage log lacks the eigh: "
+                              f"{dense['stages']}")
+
+    def by_rank(part, key):
+        return ", ".join(f"{rec[part][key]:.2f}" for rec in recs)
+
+    print(f"sharded eigh: {SHARD_RANKS} ranks on one card (gloo). (a) dense "
+          f"n={N_FULL}: eigh {eigh_s:.2f} s against phase 6's cuSOLVER "
+          f"{full['eigh_s']:.2f} s and phase 12b's one-process dc "
+          f"{dc_dense['seconds']:.2f} s; depth-0 r_lo "
+          f"{dense['split']['r_lo']} ({dense['split']['sched_rows']} "
+          f"schedule rows + {dense['split']['polish_rounds']} polish); "
+          f"against cuSOLVER max |d ev| / max|ev| "
+          f"{dense['errs']['max_ev_err_rel']:.3e}, certificate max resid / "
+          f"max|ev| {dense['errs']['max_resid_rel']:.3e}, max |U'U - I| "
+          f"{dense['errs']['max_orth']:.3e}; end to end {dense['e2e_s']:.2f} "
+          f"s (phase 6: {full['e2e_s']:.2f} s); K1 launches {launches} over "
+          f"the ranks; peak GiB by rank {by_rank('dense', 'peak_gib')} "
+          f"(phase 12b one process {dc_dense['peak_gib']:.2f}); GiB sent by "
+          f"rank {by_rank('dense', 'sent_gib')}; tables identical, vs phase "
+          f"6 max|dlog10 p|={d:.3e}. (b) the {PK_LARGE} Gram: "
+          f"{gram['seconds']:.2f} s against phase 12a's one-process dc "
+          f"{dc_large['top_basis_stages']['gram_eigh_s']:.2f} s; depth-0 r_lo "
+          f"{gram['split']['r_lo']}; against cuSOLVER "
+          f"{gram['errs']['max_ev_err_rel']:.3e}, certificate "
+          f"{gram['errs']['max_resid_rel']:.3e}, max |U'U - I| "
+          f"{gram['errs']['max_orth']:.3e}; peak GiB by rank "
+          f"{by_rank('gram', 'peak_gib')} (phase 12a one process "
+          f"{dc_large['peak_gib']:.2f}); GiB sent by rank "
+          f"{by_rank('gram', 'sent_gib')}; (ev, U) bytes identical; "
+          f"{wall:.1f} s wall with the processes' start", flush=True)
+    return dict(ranks=SHARD_RANKS, backend="gloo", launches=launches,
+                dense=dict(eigh_s=eigh_s, phase6_eigh_s=full["eigh_s"],
+                           phase12b_dc_s=dc_dense["seconds"],
+                           vs_phase6_dlogp=d,
+                           by_rank=[rec["dense"] for rec in recs]),
+                gram=dict(phase12a_dc_s=dc_large["top_basis_stages"][
+                    "gram_eigh_s"], phase12a_peak_gib=dc_large["peak_gib"],
+                          by_rank=[rec["gram"] for rec in recs]),
+                wall_s=wall)
+
+
 def phase_full(pt, gk, solver):
     import numpy as np
     import torch
@@ -1552,7 +1731,7 @@ def phase_full(pt, gk, solver):
     print(json.dumps({"profile": prof}), flush=True)
     return dict(launches=launches, host_syncs=syncs, eigh_s=eigh_s,
                 e2e_s=e2e_s, scan_s=scan_s, snps_per_s=P_FULL / scan_s,
-                peak_gib=peak / 2**30, finite_p=finite), dc
+                peak_gib=peak / 2**30, finite_p=finite), dc, df
 
 
 def profile_blocks(pt, gk, y, X, W, K, cfg, block):
@@ -1662,11 +1841,16 @@ def main() -> int:
 
         # 12a. the divide-and-conquer eigh of the cohort's 16,384 Gram and
         # a scan on its basis
-        dc_large = phase_dc_large(pt, gk, large, ctx)
+        dc_large = phase_dc_large(pt, gk, large, ctx, tmp)
 
         # 6. full width, dense K (its profile comes after every timed
         # scan), and 12b. the divide-and-conquer eigh of its K
-        full, dc_dense = phase_full(pt, gk, solver)
+        full, dc_dense, full_table = phase_full(pt, gk, solver)
+
+        # 14. the sample-sharded eigendecomposition on two ranks
+        sharded = phase_sharded_eigh(full, full_table, dc_large, dc_dense,
+                                     tmp)
+        del full_table
 
         # where the large path's warm blocks spend their time
         large["profile"] = profile_blocks(
@@ -1697,7 +1881,8 @@ def main() -> int:
         "launches": (full["launches"] + large["launches"]
                      + multi["launches"] + cli["launches_run1"]
                      + cli["launches_run2"] + mesh["launches"]
-                     + mesh_cli["launches"] + dc_large["launches"]),
+                     + mesh_cli["launches"] + dc_large["launches"]
+                     + sharded["launches"]),
         "launches_by_path": {
             f"dense n={N_FULL} p={P_FULL}": full["launches"],
             f"implicit n={N_LARGE} p={P_LARGE} p_k={PK_LARGE}":
@@ -1714,7 +1899,10 @@ def main() -> int:
             f"n={N_FULL} p={P_FULL} (summed over ranks)":
                 mesh_cli["launches"],
             f"implicit on the eigh_dc basis n={N_LARGE} p={P_LARGE} "
-            f"p_k={PK_LARGE}": dc_large["launches"]},
+            f"p_k={PK_LARGE}": dc_large["launches"],
+            f"sample mesh {SHARD_RANKS} ranks dense n={N_FULL} p={P_FULL} "
+            f"on the sample-sharded eigh_dc basis (summed over ranks)":
+                sharded["launches"]},
         "max_abs_err": worst,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1738,6 +1926,7 @@ def main() -> int:
                                "nccl": mesh_nccl}}), flush=True)
     print(json.dumps({"eigh_dc": {"large": dc_large, "dense": dc_dense}}),
           flush=True)
+    print(json.dumps({"sharded_eigh": sharded}), flush=True)
     print(json.dumps({"workloads": workloads}), flush=True)
     print(card, flush=True)
     print(json.dumps(record), flush=True)

@@ -67,8 +67,8 @@ from .io.streaming import (
     prefill_device_cache,
 )
 from .parallel import distributed
-from .parallel.dist import from_rank0, gather_columns
-from .parallel.mesh import is_writer, put_replicated, rank_device, snp_shard
+from .parallel.dist import from_rank0, gather_columns, sharded_eigh_fn
+from .parallel.mesh import axis_shard, is_writer, put_replicated, rank_device
 from .utils.checkpoint import RunCheckpoint
 from .utils.logging import StageLogger
 
@@ -354,7 +354,10 @@ def pygemma(
          arguments; each runs the scan on its share of every SNP block's
          columns on its own device, and all return the identical table.
          Replicated inputs (W, Y, the eigenbasis, the null fit) are rank 0's;
-         rank 0 alone writes ``run_dir`` and logs.
+         rank 0 alone writes ``run_dir`` and logs.  A ``sample`` axis longer
+         than 1 decomposes a dense K on its ranks together
+         (:func:`~pygemma_tpu_torch.parallel.dist.sharded_eigh_fn`), for
+         every ``eigh_backend`` but ``"host"``.
     """
     dev = resolve_device(device)
     cfg = config or from_env()
@@ -449,11 +452,13 @@ def pygemma(
     if mesh is not None:
         eig_key = distributed.broadcast_object(eig_key)
 
-    def eigen_basis(key, stage, compute):
+    def eigen_basis(key, stage, compute, sharded=None):
         """(ev, U) on the device: from the device cache, the run_dir, or
         ``compute()``; the result becomes the device cache's one entry.
         Under a mesh, rank 0 finds or computes it and broadcasts it, unless
-        every rank holds it already."""
+        every rank holds it already; with ``sharded`` (a computation every
+        rank joins, which leaves the same bytes on every rank), rank 0 only
+        looks it up, and when it finds none every rank runs ``sharded()``."""
         cache_key = (key, str(dev))
         hit = _EIGEN_DEV_CACHE.get(cache_key)
         if mesh is None and hit is not None:
@@ -461,24 +466,32 @@ def pygemma(
         if mesh is not None and distributed.all_true(hit is not None):
             return hit
 
-        def obtain():
+        def computed(fn):
+            with log.stage(stage):
+                ev_d, U_d = fn()
+            if ckpt is not None:
+                ckpt.save_eigen(ev_d.cpu().numpy(), U_d.cpu().numpy(), key)
+            return ev_d, U_d
+
+        def obtain(fn):
             if hit is not None:
                 return hit
             cached = ckpt.load_eigen(key) if ckpt is not None else None
             if cached is not None:
                 return to_dev(cached[0]), to_dev(cached[1])
-            with log.stage(stage):
-                ev_d, U_d = compute()
-            if ckpt is not None:
-                ckpt.save_eigen(ev_d.cpu().numpy(), U_d.cpu().numpy(), key)
-            return ev_d, U_d
+            return computed(fn) if fn is not None else None
 
         if mesh is None:
-            ev_d, U_d = obtain()
+            ev_d, U_d = obtain(compute)
         else:
-            parts = obtain() if writer else None
-            with log.stage("broadcast of the eigenbasis"):
-                ev_d, U_d = from_rank0(mesh, lambda: parts)
+            parts = obtain(compute if sharded is None else None) \
+                if writer else None
+            if sharded is not None and not distributed.broadcast_object(
+                    parts is not None):
+                ev_d, U_d = computed(sharded)
+            else:
+                with log.stage("broadcast of the eigenbasis"):
+                    ev_d, U_d = from_rank0(mesh, lambda: parts)
         ev_d, U_d = ev_d.to(torch_dtype(dtype)), U_d.to(torch_dtype(dtype))
         _EIGEN_DEV_CACHE.clear()
         _EIGEN_DEV_CACHE[cache_key] = (ev_d, U_d)
@@ -487,7 +500,7 @@ def pygemma(
     B = min(cfg.snp_block, max(p, 1))
     if mesh is not None:
         # every rank of the snp axis takes an equal share of a block
-        n_snp = snp_shard(mesh, cfg.snp_axis)[1]
+        n_snp = axis_shard(mesh, cfg.snp_axis)[1]
         B = -(-B // n_snp) * n_snp
     # the opt-in fill of the device block cache overlaps the decomposition
     # (single-device runs only)
@@ -518,7 +531,15 @@ def pygemma(
                 def compute():
                     return auto_eigendecompose(np.asarray(K, dtype),
                                                cfg.eigh_backend, dtype, dev)
-            ev_dev, U_dev = eigen_basis(eig_key, "eigendecomposition", compute)
+            sharded = None
+            if (not lowrank and mesh is not None
+                    and axis_shard(mesh, cfg.sample_axis)[1] > 1
+                    and cfg.eigh_backend != "host"):
+                # the sample ranks decompose K's row slabs together
+                def sharded():
+                    return sharded_eigh_fn(mesh, cfg)(np.asarray(K, dtype))
+            ev_dev, U_dev = eigen_basis(eig_key, "eigendecomposition", compute,
+                                        sharded)
             with log.stage("rotation of W, Y"):
                 W_dev = rotate(U_dev, replicated(W))
                 Y_dev = rotate(U_dev, replicated(Y))
@@ -562,7 +583,7 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
     c = W_dev.shape[1]
     frames = []
     keys = _result_keys(cfg)
-    shard = None if mesh is None else snp_shard(mesh, cfg.snp_axis)
+    shard = None if mesh is None else axis_shard(mesh, cfg.snp_axis)
     for ph in range(n_pheno):
         y_dev = Y_dev[:, ph]
         shared_raw = ictx = None

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import check_matmul_precision
+from ..parallel.slabs import WHOLE, SlabGroup, Slabs
 
 #: ``max_block``'s default: the JAX module's largest built-in eigh, kept so
 #: that the recursion has the same shape on both packages
@@ -109,14 +110,15 @@ def _randn(shape, like: torch.Tensor, seed: int) -> torch.Tensor:
                        device=like.device, dtype=like.dtype)
 
 
-def _eye_residual(X2: torch.Tensor) -> torch.Tensor:
+def _eye_residual(X2: torch.Tensor, rows=WHOLE) -> torch.Tensor:
     """max |X2 - I| with one n x n temporary."""
     R = X2.abs()
-    R.diagonal().copy_(X2.diagonal() - 1.0).abs_()
-    return R.amax()
+    rows.diag(R).copy_(rows.diag(X2) - 1.0).abs_()
+    return rows.amax(R)
 
 
-def _shift_scale(A, sigma: float, seed: int, boost: float) -> torch.Tensor:
+def _shift_scale(A, sigma: float, seed: int, boost: float,
+                 rows=WHOLE) -> torch.Tensor:
     """H = A - sigma I in _SIGN_DTYPE, scaled so its spectrum sits safely
     inside [-1, 1].
 
@@ -125,54 +127,56 @@ def _shift_scale(A, sigma: float, seed: int, boost: float) -> torch.Tensor:
     safety margin: the quintic sign steps DIVERGE for |x| > ~1.01, and the
     sqrt(n) slack of a Frobenius bound would instead start the iteration so
     deep in [0, eps] that it stalls."""
-    n = A.shape[0]
+    n = A.shape[1]
     H = A.to(_SIGN_DTYPE, copy=True)
-    H.diagonal().sub_(sigma)
+    rows.diag(H).sub_(sigma)
     tiny = torch.finfo(H.dtype).tiny
-    V = _randn((n, 8), H, seed)
+    V = rows.take(_randn((n, 8), H, seed))
     for _ in range(24):
-        V = torch.matmul(H, V)
-        V = V / (torch.linalg.vector_norm(V, dim=0, keepdim=True) + tiny)
-    est = torch.linalg.vector_norm(torch.matmul(H, V), dim=0).amax()
+        V = rows.mm(H, V)
+        V = V / (rows.colnorm(V, keepdim=True) + tiny)
+    est = rows.colnorm(rows.mm(H, V)).amax()
     return H.div_(1.05 * boost * est + tiny)
 
 
-def _sign_step(X, a: float, b: float, c: float):
+def _sign_step(X, a: float, b: float, c: float, rows=WHOLE):
     """One quintic sign step PLUS the convergence residual of the INPUT,
     read off the X^2 that the step computes anyway -- so monitoring
     convergence costs zero extra GEMMs."""
-    X2 = torch.matmul(X, X)
-    resid_in = _eye_residual(X2)
-    X3 = torch.matmul(X, X2)
-    X5 = torch.matmul(X3, X2)
+    X2 = rows.mm(X, X)
+    resid_in = _eye_residual(X2, rows)
+    X3 = rows.mm(X, X2)
+    X5 = rows.mm(X3, X2)
     del X2
     return X5.mul_(c).add_(X3, alpha=b).add_(X, alpha=a), resid_in
 
 
-def _sign_step_ns(X, a: float, b: float):
+def _sign_step_ns(X, a: float, b: float, rows=WHOLE):
     """Cubic (Newton-Schulz) step in TWO GEMMs via Horner:
     aX + bX^3 = X (aI + b X^2).  The schedule's leading/tail NS rows and
     every polish round only need the cubic, which saves one n^3 GEMM each
     against the quintic step."""
-    X2 = torch.matmul(X, X)
-    resid_in = _eye_residual(X2)
-    X2.mul_(b).diagonal().add_(a)
-    return torch.matmul(X, X2), resid_in
+    X2 = rows.mm(X, X)
+    resid_in = _eye_residual(X2, rows)
+    rows.diag(X2.mul_(b)).add_(a)
+    return rows.mm(X, X2), resid_in
 
 
-def _sign_residual(X) -> torch.Tensor:
+def _sign_residual(X, rows=WHOLE) -> torch.Tensor:
     """||X^2 - I||_inf-ish convergence measure (one GEMM + reduction)."""
-    return _eye_residual(torch.matmul(X, X))
+    return _eye_residual(rows.mm(X, X), rows)
 
 
-def _ritz_sketch(A, Om):
+def _ritz_sketch(A, Om, rows=WHOLE):
     """(Om'A Om, Om'Om) pencil blocks for a host-side generalized Ritz
-    estimate of the spectrum (two GEMMs, no device factorization)."""
+    estimate of the spectrum (two GEMMs, no device factorization).  ``Om``
+    is whole on every rank."""
     Y = torch.matmul(A, Om)
-    return torch.matmul(Om.T, Y), torch.matmul(Om.T, Om)
+    Om = rows.take(Om)
+    return rows.gram(Om, Y), rows.gram(Om, Om)
 
 
-def _spectral_quantile(A, q: float, seed: int, k: int = 512):
+def _spectral_quantile(A, q: float, seed: int, k: int = 512, rows=WHOLE):
     """Estimate a split point near the q-quantile of A's spectrum from the
     Ritz values of a random k-dim subspace (generalized eigenproblem
     solved on the host at k^2, with scipy).
@@ -184,13 +188,22 @@ def _spectral_quantile(A, q: float, seed: int, k: int = 512):
     resulting pseudo-projector can mix one cluster direction into the
     wrong Rayleigh block (K = GG'/p + eps I with n > p has an (n - p)-fold
     eps eigenvalue that can span the median).  Continuous bulks (MP-law
-    Grams) have no dominant gap and keep the plain quantile."""
-    import scipy.linalg
-
-    n = A.shape[0]
+    Grams) have no dominant gap and keep the plain quantile.  The host's
+    pencil is solved once, on the group's first rank."""
+    n = A.shape[1]
     k = min(k, n)
     Om = _randn((n, k), A, seed)
-    H, B = _ritz_sketch(A, Om)
+    H, B = _ritz_sketch(A, Om, rows)
+    del Om
+    return rows.on_leader(_ritz_split_point, H, B, q)
+
+
+def _ritz_split_point(H, B, q: float):
+    """The split point from the Ritz pencil (H, B) of
+    :func:`_spectral_quantile` (None when the pencil cannot be solved)."""
+    import scipy.linalg
+
+    k = H.shape[0]
     Hh = H.cpu().numpy().astype(np.float64)
     Bh = B.cpu().numpy().astype(np.float64)
     Hh = (Hh + Hh.T) / 2
@@ -218,30 +231,30 @@ def _spectral_quantile(A, q: float, seed: int, k: int = 512):
     return target
 
 
-def _projector_rank(S, dtype):
+def _projector_rank(S, dtype, rows=WHOLE):
     """P_lo = (I - sign)/2 in ``dtype``, computed in place over S (the sign
     iterate is dead past the projector); returns (P_lo, trace estimate of
     its rank)."""
     P = S.neg_()
-    P.diagonal().add_(1.0)
+    rows.diag(P).add_(1.0)
     P.mul_(0.5)
-    return P.to(dtype), P.diagonal().sum()
+    return P.to(dtype), rows.sum(rows.diag(P))
 
 
-def _project_out(V, Y):
-    return Y - torch.matmul(V, torch.matmul(V.T, Y))
+def _project_out(V, Y, rows=WHOLE):
+    return Y - torch.matmul(V, rows.gram(V, Y))
 
 
-def _qr_q(Y):
+def _qr_q(Y, rows=WHOLE):
     """Householder-QR orthonormalization: always returns exactly
     orthonormal columns, even for rank-deficient Y (deficient directions
     become arbitrary orthonormal completions -- harmless inside a
     (near-)degenerate eigenspace, and the coupling check catches the
-    harmful case)."""
-    return torch.linalg.qr(Y).Q
+    harmful case).  Over row slabs: Householder TSQR."""
+    return rows.qr_q(Y)
 
 
-def _cholqr2(Y):
+def _cholqr2(Y, rows=WHOLE):
     """CholeskyQR2: two CholeskyQR passes give machine-orthonormal columns
     for moderately conditioned Y, as GEMMs plus a (k, k) Cholesky and a
     triangular solve.  Only the first pass shifts the Gram by
@@ -250,30 +263,32 @@ def _cholqr2(Y):
     |Q'Q - I| near k * eps.  A rank-deficient Y yields NaN columns, as the
     JAX package's Cholesky does: ``cholesky_ex`` reports the failure in
     ``info`` (no host sync) and the factor is then set to NaN, so
-    :func:`_ortho_cols`'s one finiteness check catches it."""
+    :func:`_ortho_cols`'s one finiteness check catches it.  Over row
+    slabs the Gram is all-reduced and the Cholesky runs on the group's
+    first rank."""
     eps = torch.finfo(Y.dtype).eps
     for shift in (True, False):
-        G = torch.matmul(Y.T, Y)
+        G = rows.gram(Y, Y)
         if shift:
             G.diagonal().add_(eps * torch.trace(G))
-        L, info = torch.linalg.cholesky_ex(G)
+        L, info = rows.small(torch.linalg.cholesky_ex, G)
         L = L.masked_fill(info.ne(0), float("nan"))
         # Y <- Y L^-T
         Y = torch.linalg.solve_triangular(L.T, Y, upper=True, left=False)
     return Y
 
 
-def _panel_step_cqr(Qbuf, Yj, j: int) -> None:
+def _panel_step_cqr(Qbuf, Yj, j: int, rows=WHOLE) -> None:
     """BCGS2 panel step with CholeskyQR2 panel factorization (see
     :func:`_cholqr2`; :func:`_panel_step` is the Householder variant for
     rank-deficient panels): writes the panel into ``Qbuf[:, j:]``."""
     Q = Qbuf[:, :j]
     for _ in range(2):
-        Yj = _project_out(Q, Yj)
-    Qbuf[:, j:j + Yj.shape[1]] = _cholqr2(Yj)
+        Yj = _project_out(Q, Yj, rows)
+    Qbuf[:, j:j + Yj.shape[1]] = _cholqr2(Yj, rows)
 
 
-def _panel_step(Qbuf, Yj, j: int) -> None:
+def _panel_step(Qbuf, Yj, j: int, rows=WHOLE) -> None:
     """One panel of blocked BCGS2 with Householder QR: project the (n,
     panel) slab Yj against the already-filled columns of Qbuf and
     orthonormalize it, twice, and write it at column j.  The second pass
@@ -285,11 +300,11 @@ def _panel_step(Qbuf, Yj, j: int) -> None:
     panel far from orthogonal to the earlier ones.)"""
     Q = Qbuf[:, :j]
     for _ in range(2):
-        Yj = _qr_q(_project_out(Q, Yj))
+        Yj = _qr_q(_project_out(Q, Yj, rows), rows)
     Qbuf[:, j:j + Yj.shape[1]] = Yj
 
 
-def _panel_qr(Y, panel: int = _PANEL, cholqr: bool = True):
+def _panel_qr(Y, panel: int = _PANEL, cholqr: bool = True, rows=WHOLE):
     """Orthonormalize the columns of a tall (n, k) block with GEMMs plus
     per-panel factorizations (blocked BCGS2).  ``cholqr=True`` uses the
     CholeskyQR2 panel (GEMM-dominated); False is the rank-robust
@@ -297,19 +312,19 @@ def _panel_qr(Y, panel: int = _PANEL, cholqr: bool = True):
     Qbuf = torch.empty_like(Y)
     step = _panel_step_cqr if cholqr else _panel_step
     for j in range(0, Y.shape[1], panel):
-        step(Qbuf, Y[:, j:j + panel], j)
+        step(Qbuf, Y[:, j:j + panel], j, rows)
     return Qbuf
 
 
-def _householder_cols(Y):
+def _householder_cols(Y, rows=WHOLE):
     """The Householder route: exactly orthonormal columns for any Y, rank
     deficiency included (panels above _PANEL_QR_MAX_DIRECT columns)."""
     if Y.shape[1] <= _PANEL_QR_MAX_DIRECT:
-        return _qr_q(Y)
-    return _panel_qr(Y, cholqr=False)
+        return _qr_q(Y, rows)
+    return _panel_qr(Y, cholqr=False, rows=rows)
 
 
-def _ortho_cols(Y):
+def _ortho_cols(Y, rows=WHOLE):
     """Orthonormalization dispatch.
 
     Fast path: CholeskyQR2 (whole-block when narrow, BCGS2 panels when
@@ -319,13 +334,14 @@ def _ortho_cols(Y):
     ones (harmless inside a (near-)degenerate eigenspace -- the coupling
     gate downstream catches the harmful case)."""
     k = Y.shape[1]
-    Q = _cholqr2(Y) if k <= _PANEL else _panel_qr(Y, cholqr=True)
-    if bool(torch.isfinite(Q[0].sum() + Q[-1].sum())):
+    Q = (_cholqr2(Y, rows) if k <= _PANEL
+         else _panel_qr(Y, cholqr=True, rows=rows))
+    if rows.all_finite(Q[:1].sum() + Q[-1:].sum()):
         return Q
-    return _householder_cols(Y)
+    return _householder_cols(Y, rows)
 
 
-def _orthonormal_range(P, k: int, seed: int, refine: int = 1):
+def _orthonormal_range(P, k: int, seed: int, refine: int = 1, rows=WHOLE):
     """Orthonormal (n, k) basis of the rank-k range of projector P:
     randomized range finding with _RANGE_OVERSAMPLE spare columns
     (subspace iteration sharpens the basis), then a Rayleigh-Ritz step on
@@ -342,14 +358,16 @@ def _orthonormal_range(P, k: int, seed: int, refine: int = 1):
     whole, and the Rayleigh-Ritz step keeps or drops it whole.  The spare
     columns mostly span directions where P is ~0, so the sketch is
     numerically rank-deficient: it is orthonormalized by the Householder
-    route, which CholeskyQR would orthonormalize only loosely."""
-    n = P.shape[0]
+    route, which CholeskyQR would orthonormalize only loosely.  Over row
+    slabs the Gaussian block is drawn whole on every rank (the values one
+    process draws) and P's products are ring products."""
+    n = P.shape[1]
     m = min(n, k + _RANGE_OVERSAMPLE)
-    Q = _householder_cols(torch.matmul(P, _randn((n, m), P, seed)))
+    Q = _householder_cols(torch.matmul(P, _randn((n, m), P, seed)), rows)
     for _ in range(refine):
-        Q = _householder_cols(torch.matmul(P, Q))
-    B = torch.matmul(Q.T, torch.matmul(P, Q))
-    _, W = torch.linalg.eigh(0.5 * (B + B.T))
+        Q = _householder_cols(rows.mm(P, Q), rows)
+    B = rows.gram(Q, rows.mm(P, Q))
+    _, W = rows.small(torch.linalg.eigh, 0.5 * (B + B.T))
     return torch.matmul(Q, W[:, m - k:])
 
 
@@ -357,7 +375,7 @@ def _back_transform(V, Usub):
     return torch.matmul(V, Usub)
 
 
-def _pair_residuals(A, U, ev):
+def _pair_residuals(A, U, ev, rows=WHOLE):
     """Per-eigenpair residual norms ||A u_i - ev_i u_i||_2 and Rayleigh
     quotients, from ONE full GEMM.
 
@@ -365,18 +383,18 @@ def _pair_residuals(A, U, ev):
     algebraically equivalent ||AU||^2 - 2 ev d + ev^2 cancels
     catastrophically in float32 (s ~ 1e-2 noise on an EXACT eigenbasis of
     3.5*I, falsely triggering the repair)."""
-    AU = torch.matmul(A, U)
-    d = torch.einsum("ij,ij->j", U, AU)
-    s = torch.linalg.vector_norm(AU - U * ev[None, :], dim=0)
+    AU = rows.mm(A, U)
+    d = rows.coldot(U, AU)
+    s = rows.colnorm(AU - U * ev[None, :])
     return s, d, AU
 
 
 def _residual_repair(A, ev, U, verbose=False, tol_rel=2e-3, max_bad=512,
-                     rounds: int = 8):
+                     rounds: int = 8, rows=WHOLE):
     prev = np.inf
     for r in range(rounds):
         ev, U, fixed, s_max = _residual_repair_once(
-            A, ev, U, verbose, tol_rel, max_bad)
+            A, ev, U, verbose, tol_rel, max_bad, rows)
         if fixed:
             return ev, U
         if verbose:
@@ -416,7 +434,7 @@ def _repair_span(flag: np.ndarray, C2: np.ndarray, cap: int) -> np.ndarray:
 
 
 def _residual_repair_once(A, ev, U, verbose=False, tol_rel=2e-3,
-                          max_bad=512):
+                          max_bad=512, rows=WHOLE):
     """Validate every eigenpair and repair mixed directions.
 
     The D&C can very occasionally assign a direction that mixes two true
@@ -427,7 +445,7 @@ def _residual_repair_once(A, ev, U, verbose=False, tol_rel=2e-3,
     flagged columns and their coupling partners repairs them within their
     joint span.  Cost: one n^3 GEMM for the residual sweep (the certificate
     every call carries) plus a small eigh when something is wrong."""
-    s, d, AU = _pair_residuals(A, U, ev)
+    s, d, AU = _pair_residuals(A, U, ev, rows)
     scale = float(ev.abs().amax()) + 1e-30
     s_np = s.cpu().numpy()
     s_max = float(s_np.max())
@@ -440,7 +458,7 @@ def _residual_repair_once(A, ev, U, verbose=False, tol_rel=2e-3,
     flag = np.where(s_np > max(tol_rel * scale, 0.4 * s_max))[0]
     flag = flag[np.argsort(-s_np[flag])][:max_bad // 8]
     fl = torch.as_tensor(flag, device=U.device)
-    C = torch.matmul(U.T, AU[:, fl]).cpu().numpy().astype(np.float64)
+    C = rows.gram(U, AU[:, fl]).cpu().numpy().astype(np.float64)
     C[flag, np.arange(len(flag))] = 0.0  # self rows carry ev, not coupling
     C2 = C * C
     # few flagged columns can afford a wide span: a defect smeared across a
@@ -461,10 +479,10 @@ def _residual_repair_once(A, ev, U, verbose=False, tol_rel=2e-3,
               f"flagged residual mass", flush=True)
     idx = torch.as_tensor(sel, device=U.device)
     Wb = U[:, idx]
-    B = torch.matmul(Wb.T, AU[:, idx])
+    B = rows.gram(Wb, AU[:, idx])
     del AU
     B = 0.5 * (B + B.T)
-    eb, Q = _eigh_small(B)
+    eb, Q = rows.small(_eigh_small, B)
     U = U.clone()
     ev = ev.clone()
     U[:, idx] = torch.matmul(Wb, Q)
@@ -489,6 +507,7 @@ def eigh_dc(
     seed: int = 0,
     _depth: int = 0,
     _scale0: Optional[float] = None,
+    group: Optional[SlabGroup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full symmetric eigendecomposition (ascending), any size, on A's
     device.
@@ -500,15 +519,28 @@ def eigh_dc(
     original matrix, not the (smaller) deep blocks.
     Returns (ev (n,), U (n, n)) on A's device, in A's dtype.  Raises
     RuntimeError when a split cannot be made to the coupling gate.
+
+    ``group``: a :class:`~pygemma_tpu_torch.parallel.slabs.SlabGroup` of
+    more than one rank, every one of which calls with its row slab of A
+    (``slabs.bounds``; (rows, n)).  The n-sized products then run on the
+    slabs (:class:`~pygemma_tpu_torch.parallel.slabs.Slabs`), a split's
+    two children run at once on the two halves of the group, a one-rank
+    child runs this function on its whole block, and every rank returns
+    the same (ev, U) bytes.  The draws, and so the splits, are those of one
+    process.
     """
-    verbose = os.environ.get("PYGEMMA_TPU_DC_VERBOSE", "") == "1"
     t_start = time.time()
     if _depth == 0:
         check_matmul_precision()  # the sign steps need full float32
     A = torch.as_tensor(A)
-    n = A.shape[0]
+    n = A.shape[1]
+    rows = (WHOLE if group is None or group.size == 1
+            else Slabs(group, n, A.device))
+    # one rank of a group prints its lines
+    verbose = (os.environ.get("PYGEMMA_TPU_DC_VERBOSE", "") == "1"
+               and rows.leader)
     if n <= max_block:
-        out = _eigh_small(A)
+        out = rows.leaf(A, _eigh_small)
         if verbose:
             float(out[0][0])  # wait for the device before the clock
             print(f"[eigh_dc] leaf n={n} {time.time()-t_start:.1f}s",
@@ -523,7 +555,7 @@ def eigh_dc(
     # the block is barely over the leaf cap, shave a thin slice off the
     # spectrum's bottom instead (low density at the edge -> the sign
     # iteration converges fast, and the big side lands exactly at the cap).
-    diag = A.diagonal().cpu().numpy()
+    diag = rows.gather_rows(rows.diag(A)).cpu().numpy()
     if n <= int(1.3 * max_block):
         # floor the shave at ~2/k of the 512-point Ritz sample: a thinner
         # target than the quantile resolution lands sigma at/below
@@ -531,7 +563,8 @@ def eigh_dc(
         frac_target = max((n - max_block) / n, 2.0 / 512.0)
     else:
         frac_target = 0.5
-    sigma = _spectral_quantile(A, frac_target, seed=seed * 31 + _depth)
+    sigma = _spectral_quantile(A, frac_target, seed=seed * 31 + _depth,
+                               rows=rows)
     if sigma is None or not np.isfinite(sigma):
         sigma = float(np.quantile(diag, frac_target))
     min_side = max(32, int(0.4 * min(frac_target, 1 - frac_target) * n))
@@ -545,16 +578,16 @@ def eigh_dc(
         # rescaling 4x and rerunning always lands inside
         boost = 1.0
         for _ in range(4):
-            S = _shift_scale(A, sigma, key, boost)
+            S = _shift_scale(A, sigma, key, boost, rows)
             # each step also returns the residual of its INPUT; in the
             # Newton-Schulz tail a converged input means the remaining
             # tail rows are no-ops up to roundoff -- skip them
             n_sched = 0
             for irow, (a, b, c) in enumerate(_SIGN_SCHEDULE):
                 if c == 0.0:  # cubic row: 2 GEMMs instead of 3
-                    S, r_in = _sign_step_ns(S, a, b)
+                    S, r_in = _sign_step_ns(S, a, b, rows)
                 else:
-                    S, r_in = _sign_step(S, a, b, c)
+                    S, r_in = _sign_step(S, a, b, c, rows)
                 n_sched += 1
                 # start checking once the aggressive quintic block is done
                 # (row 7): each check is one scalar read on the host
@@ -573,7 +606,7 @@ def eigh_dc(
             n_polish = 0
             prev_resid = np.inf
             for _ in range(10):
-                S_new, r_in = _sign_step_ns(S, 1.5, -0.5)
+                S_new, r_in = _sign_step_ns(S, 1.5, -0.5, rows)
                 resid = float(r_in)  # residual of S BEFORE this NS step
                 S = S_new
                 if not np.isfinite(resid) or resid < 3e-2:
@@ -582,7 +615,7 @@ def eigh_dc(
                     break  # stalled: non-convergent near-sigma modes
                 prev_resid = resid
                 n_polish += 1
-            if np.isfinite(float(_sign_residual(S))):
+            if np.isfinite(float(_sign_residual(S, rows))):
                 break
             if verbose:
                 print(f"[eigh_dc] n={n} depth={_depth} attempt={attempt} "
@@ -593,7 +626,7 @@ def eigh_dc(
                   f"sigma={sigma:.4g} boost={boost} sched={n_sched} "
                   f"polish={n_polish} "
                   f"{time.time()-t_att:.1f}s", flush=True)
-        P_lo, tr = _projector_rank(S, A.dtype)
+        P_lo, tr = _projector_rank(S, A.dtype, rows)
         tr_f = float(tr)
         r_lo = int(np.clip(round(tr_f), 0, n)) if np.isfinite(tr_f) else 0
         if min(r_lo, n - r_lo) >= min_side:
@@ -604,7 +637,8 @@ def eigh_dc(
         # using Ritz (fallback: diagonal) quantiles
         q = (frac_target * 0.5 if r_lo / n > frac_target
              else frac_target + (1 - frac_target) * 0.5)
-        s_new = _spectral_quantile(A, q, seed=seed * 31 + 7 * _depth + attempt)
+        s_new = _spectral_quantile(A, q, seed=seed * 31 + 7 * _depth + attempt,
+                                   rows=rows)
         sigma = (s_new if s_new is not None and np.isfinite(s_new)
                  else float(np.quantile(diag, q)))
     if verbose:
@@ -618,7 +652,7 @@ def eigh_dc(
         # decomposition is exact, so force a half split; the recursion
         # bottoms out at the direct eigh either way.
         r_lo = n // 2
-        P_lo = 0.5 * torch.eye(n, dtype=A.dtype, device=A.device)
+        P_lo = rows.eye_half(A)
 
     t_sub = time.time()
     # Range finding with a coupling-gated retry.  V_lo comes from
@@ -629,7 +663,7 @@ def eigh_dc(
     # Rayleigh blocks and the coupling come from ONE stacked pencil
     # M = [V_lo V_hi]' A [V_lo V_hi].  Attempt 0 runs refine=1; a failed
     # gate retries once with refine=2 and a fresh seed.
-    scale = float(A.abs().amax()) + 1e-30
+    scale = float(rows.amax(A.abs())) + 1e-30
     if _scale0 is None:
         _scale0 = scale
     gate = max(scale, _scale0)
@@ -638,17 +672,18 @@ def eigh_dc(
     for rtry in range(2):
         V_lo = _orthonormal_range(
             P_lo, r_lo, seed=seed * 7919 + 13 + _depth + 1000 * rtry,
-            refine=1 + rtry)
-        Z = _randn((n, n - r_lo), A,
-                   seed * 7919 + 101 + _depth + 1000 * rtry)
-        V_hi = _ortho_cols(_project_out(V_lo, Z))
+            refine=1 + rtry, rows=rows)
+        Z = rows.take(_randn((n, n - r_lo), A,
+                             seed * 7919 + 101 + _depth + 1000 * rtry))
+        V_hi = _ortho_cols(_project_out(V_lo, Z, rows), rows)
         del Z
-        V_hi = _ortho_cols(_project_out(V_lo, V_hi))
+        V_hi = _ortho_cols(_project_out(V_lo, V_hi, rows), rows)
         U_split = torch.cat([V_lo, V_hi], dim=1)
-        AV = torch.matmul(A, U_split)
-        M = torch.matmul(U_split.T, AV)
+        AV = rows.mm(A, U_split)
+        # over row slabs M is this rank's rows of its child's block
+        M, coupling = rows.pencil(U_split, AV, r_lo)
         del AV, U_split
-        coupling = float(M[r_lo:, :r_lo].abs().amax())
+        coupling = float(coupling)
         # accept below 8e-3*gate without retrying: a fresh-draw retry on a
         # marginal coupling costs a full range find and does not improve it
         # (the leakage is the projector's, not the draw's)
@@ -678,18 +713,31 @@ def eigh_dc(
         print(f"[eigh_dc] n={n} depth={_depth} ranges+pencil+coupling "
               f"{coupling:.2e} {time.time()-t_sub:.1f}s", flush=True)
     # symmetrized diagonal blocks of the pencil are the Rayleigh blocks
-    A_lo = 0.5 * (M[:r_lo, :r_lo] + M[:r_lo, :r_lo].T)
-    A_hi = 0.5 * (M[r_lo:, r_lo:] + M[r_lo:, r_lo:].T)
+    A_lo, A_hi = rows.blocks(M, r_lo)
     # every n^2 buffer that is dead across the recursion is freed NOW, so
     # the caching allocator can hand its memory to the leaf eigh
     del M
-    ev_lo, U_lo = eigh_dc(A_lo, max_block, seed + 1, _depth + 1, _scale0)
-    del A_lo
-    # back-transform the low block BEFORE recursing on the high one
-    B_lo = _back_transform(V_lo, U_lo)
-    del V_lo, U_lo
-    ev_hi, U_hi = eigh_dc(A_hi, max_block, seed + 2, _depth + 1, _scale0)
-    del A_hi
+    if rows.tree is None:
+        ev_lo, U_lo = eigh_dc(A_lo, max_block, seed + 1, _depth + 1, _scale0)
+        del A_lo
+        # back-transform the low block BEFORE recursing on the high one
+        B_lo = _back_transform(V_lo, U_lo)
+        del V_lo, U_lo
+        ev_hi, U_hi = eigh_dc(A_hi, max_block, seed + 2, _depth + 1,
+                              _scale0)
+        del A_hi
+    else:
+        # the two children at once, each on its half of the group; then
+        # every rank back-transforms its rows with both
+        side = 0 if A_lo is not None else 1
+        ev_c, U_c = eigh_dc(A_hi if side else A_lo, max_block,
+                            seed + 1 + side, _depth + 1, _scale0,
+                            rows.tree.children[side])
+        del A_lo, A_hi
+        (ev_lo, U_lo), (ev_hi, U_hi) = rows.share(ev_c, U_c)
+        del ev_c, U_c
+        B_lo = _back_transform(V_lo, U_lo)
+        del V_lo, U_lo
     B_hi = _back_transform(V_hi, U_hi)
     del V_hi, U_hi
     U = torch.cat([B_lo, B_hi], dim=1)
@@ -701,7 +749,8 @@ def eigh_dc(
     ev, U = ev[order], U[:, order]
     if _depth == 0:
         # one-GEMM certificate + local repair of any mixed direction
-        ev, U = _residual_repair(A, ev, U, verbose)
+        ev, U = _residual_repair(A, ev, U, verbose, rows=rows)
+    U = rows.gather_rows(U)
     if verbose:
         print(f"[eigh_dc] n={n} depth={_depth} done "
               f"{time.time()-t_start:.1f}s", flush=True)

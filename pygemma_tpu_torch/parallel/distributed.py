@@ -151,27 +151,38 @@ def _transport(t: torch.Tensor) -> torch.Tensor:
 
 
 def broadcast(t: Optional[torch.Tensor], device: torch.device,
-              src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s tensor on every rank, on ``device``.  The other ranks
-    pass None: the shape and dtype travel first."""
+              src: int = 0, group=None) -> torch.Tensor:
+    """Rank ``src``'s tensor on every rank (of ``group``; ``src`` is a
+    global rank), on ``device``.  The other ranks pass None: the shape and
+    dtype travel first."""
     meta = [(tuple(t.shape), t.dtype) if dist.get_rank() == src else None]
-    dist.broadcast_object_list(meta, src=src)
+    dist.broadcast_object_list(meta, src=src, group=group)
     shape, dtype = meta[0]
     if dist.get_rank() == src:
         t = t.to(device)  # a host input too: NCCL sends device tensors
-        dist.broadcast(_transport(t.contiguous()), src=src)
+        dist.broadcast(_transport(t.contiguous()), src=src, group=group)
         return t
     buf = torch.empty(shape, dtype=dtype,
                       device="cpu" if _staged() else device)
-    dist.broadcast(buf, src=src)
+    dist.broadcast(buf, src=src, group=group)
     return buf.to(device)
 
 
-def broadcast_object(obj, src: int = 0):
-    """Rank ``src``'s picklable object on every rank."""
+def broadcast_object(obj, src: int = 0, group=None):
+    """Rank ``src``'s picklable object on every rank (of ``group``)."""
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
+
+
+def from_src(compute, device: torch.device, src: int = 0,
+             group=None) -> tuple:
+    """``compute()`` (a tuple of tensors) run on rank ``src`` only and
+    broadcast: every rank (of ``group``) returns its values on ``device``."""
+    parts = compute() if dist.get_rank() == src else None
+    n = broadcast_object(None if parts is None else len(parts), src, group)
+    return tuple(broadcast(None if parts is None else parts[i], device, src,
+                           group) for i in range(n))
 
 
 def all_sum(value: int) -> int:
@@ -206,9 +217,9 @@ def gather_table(cols: Dict[str, torch.Tensor], mesh,
     coordinate hold the same columns; one copy is kept).  The in-program
     replacement for the reference's offline CSV concatenation
     (tests/combine_benchmarks.py:17-29)."""
-    from .mesh import snp_ranks
+    from .mesh import axis_ranks
 
-    order = snp_ranks(mesh, snp_axis)
+    order = axis_ranks(mesh, snp_axis)
     out = {}
     for k, v in cols.items():
         parts = all_gather(v)

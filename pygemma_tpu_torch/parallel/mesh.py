@@ -7,7 +7,9 @@ the ranks of the default process group, one process per rank.  The scan is
 SNP-parallel: the ranks along the ``snp`` axis take their share of each SNP
 block's columns; ranks that share a ``snp`` coordinate (a ``sample`` axis
 longer than 1) compute the same columns, as the JAX program, whose scan
-replicates over that axis, does.
+replicates over that axis, does.  The dense eigendecomposition splits over
+those ranks instead: the ``sample`` ranks at ``snp`` coordinate 0 each
+hold a row slab of K (``dist.sharded_eigh_fn``).
 """
 
 from __future__ import annotations
@@ -57,16 +59,17 @@ def _axis(mesh: DeviceMesh, name: str) -> int:
     return mesh.mesh_dim_names.index(name)
 
 
-def snp_shard(mesh: DeviceMesh, snp_axis: str = "snp") -> Tuple[int, int]:
-    """(this rank's ``snp`` coordinate, the axis' length)."""
-    ax = _axis(mesh, snp_axis)
+def axis_shard(mesh: DeviceMesh, axis: str) -> Tuple[int, int]:
+    """(this rank's coordinate on ``axis``, the axis' length)."""
+    ax = _axis(mesh, axis)
     return mesh.get_coordinate()[ax], mesh.mesh.shape[ax]
 
 
-def snp_ranks(mesh: DeviceMesh, snp_axis: str = "snp") -> List[int]:
-    """The ranks at coordinate 0 of every other axis, in ``snp`` order: one
-    holder of each share of the columns."""
-    grid = np.moveaxis(mesh.mesh.numpy(), _axis(mesh, snp_axis), -1)
+def axis_ranks(mesh: DeviceMesh, axis: str) -> List[int]:
+    """The ranks at coordinate 0 of every other axis, in ``axis`` order: on
+    ``snp``, one holder of each share of the columns; on ``sample``, the
+    ranks that split the eigendecomposition."""
+    grid = np.moveaxis(mesh.mesh.numpy(), _axis(mesh, axis), -1)
     return grid.reshape(-1, grid.shape[-1])[0].tolist()
 
 

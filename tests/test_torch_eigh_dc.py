@@ -333,8 +333,8 @@ def _coupling_run(A, max_block, theta, monkeypatch, capsys):
     real = tdc._orthonormal_range
     calls = []
 
-    def patched(P, k, seed, refine=1):
-        Q = real(P, k, seed, refine)
+    def patched(P, k, seed, refine=1, rows=tdc.WHOLE):
+        Q = real(P, k, seed, refine, rows)
         calls.append(k)
         if len(calls) == 1:
             return torch.full_like(Q, float("nan"))
@@ -398,7 +398,7 @@ def test_eigh_dc_float64():
 def test_forced_dc_that_fails_raises(monkeypatch):
     """A forced "dc" whose split fails raises; it does not switch to
     another eigh."""
-    def failing(P, k, seed, refine=1):
+    def failing(P, k, seed, refine=1, rows=tdc.WHOLE):
         return torch.full((P.shape[0], k), float("nan"), dtype=P.dtype)
 
     monkeypatch.setattr(tdc, "_orthonormal_range", failing)

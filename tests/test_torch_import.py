@@ -41,6 +41,7 @@ PORT_MODULES = [
     "pygemma_tpu_torch.utils.profiling", "pygemma_tpu_torch.parallel",
     "pygemma_tpu_torch.parallel.mesh", "pygemma_tpu_torch.parallel.dist",
     "pygemma_tpu_torch.parallel.distributed",
+    "pygemma_tpu_torch.parallel.slabs",
 ]
 
 
