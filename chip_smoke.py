@@ -534,9 +534,8 @@ def phase_large(pt, gk, solver, tmp):
 
     # the top basis alone, by stage
     torch.cuda.synchronize()
-    stages = {}
     t0 = time.time()
-    basis = lowrank_top_basis(lrk, timings=stages)
+    basis, stages = top_basis_stages(lambda: lowrank_top_basis(lrk))
     torch.cuda.synchronize()
     top_s = time.time() - t0
     check(bool(torch.isfinite(basis.U_top).all()), "top basis not finite")
@@ -1184,6 +1183,21 @@ def phase_mesh_nccl(pt, oracle):
                 seconds=mesh_s)
 
 
+def top_basis_stages(fn):
+    """``fn()`` (a top basis) with tracing on: (its result, the device
+    seconds of its three ``lowrank.*`` stage spans by stage)."""
+    from pygemma_tpu_torch.utils import profiling
+
+    profiling.enable()
+    try:
+        out = fn()
+        spans = profiling.collect()
+    finally:
+        profiling.disable()
+    return out, {s.name.split(".")[1] + "_s": s.device_ns / 1e9
+                 for s in spans if s.name.startswith("lowrank.")}
+
+
 def dc_verbose(fn):
     """``fn()`` with eigh_dc's per-split lines on (PYGEMMA_TPU_DC_VERBOSE):
     returns (its result, the lines), echoing the lines."""
@@ -1288,12 +1302,11 @@ def phase_dc_large(pt, gk, large, ctx, tmp):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stages = {}
     lowrank.auto_eigendecompose = spy
     try:
         t0 = time.time()
-        basis, lines = dc_verbose(
-            lambda: lowrank.lowrank_top_basis(lrk, "dc", timings=stages))
+        (basis, stages), lines = dc_verbose(lambda: top_basis_stages(
+            lambda: lowrank.lowrank_top_basis(lrk, "dc")))
         torch.cuda.synchronize()
         top_s = time.time() - t0
     finally:

@@ -70,6 +70,7 @@ from .parallel import distributed
 from .parallel.dist import from_rank0, gather_columns, sharded_eigh_fn
 from .parallel.mesh import axis_shard, is_writer, put_replicated, rank_device
 from .utils.checkpoint import RunCheckpoint
+from .utils import profiling
 from .utils.logging import StageLogger
 
 #: genotype matrices that stream as codes and dequantize on the device
@@ -108,13 +109,14 @@ def _result_keys(cfg) -> list:
 def _assoc_block(ev, W, y, Xblock, cfg, null_arr, de,
                  implicit: Optional[ImplicitCtx] = None) -> torch.Tensor:
     """One SNP block -> a single stacked (n_keys, B) tensor, so the driver
-    pulls one buffer per block."""
+    pulls one buffer per block.  Traced as a ``reml`` span."""
     null = (NullFit(null_arr[0], null_arr[1], null_arr[2])
             if null_arr is not None else None)
-    res = assoc_block(ev, W, y, Xblock, cfg, null=null, de=de, pvalues=False,
-                      implicit=implicit)
-    d = res._asdict()
-    return torch.stack([d[k] for k in _result_keys(cfg)])
+    with profiling.span("reml"):
+        res = assoc_block(ev, W, y, Xblock, cfg, null=null, de=de,
+                          pvalues=False, implicit=implicit)
+        d = res._asdict()
+        return torch.stack([d[k] for k in _result_keys(cfg)])
 
 
 def _fit_null(ev, W, y, cfg,
@@ -127,11 +129,12 @@ def _assoc_multi(ev, W, Y_kn, Xblock, cfg, null_stack, de,
                  implicit_multi: Optional[ImplicitMultiCtx] = None
                  ) -> torch.Tensor:
     """One SNP block against k phenotypes -> one stacked (n_keys, k, B)
-    tensor (see :func:`_assoc_block`)."""
-    res = assoc_block_multi(ev, W, Y_kn, Xblock, cfg, null_stack=null_stack,
-                            de=de, implicit_multi=implicit_multi,
-                            pvalues=False)
-    return torch.stack([res[k] for k in _result_keys(cfg)])
+    tensor (see :func:`_assoc_block`), traced as one ``reml`` span."""
+    with profiling.span("reml"):
+        res = assoc_block_multi(ev, W, Y_kn, Xblock, cfg,
+                                null_stack=null_stack, de=de,
+                                implicit_multi=implicit_multi, pvalues=False)
+        return torch.stack([res[k] for k in _result_keys(cfg)])
 
 
 def _table_columns(d: dict, null_ml, tests) -> dict:
@@ -195,9 +198,12 @@ def _raw_gram(shared_raw: torch.Tensor) -> torch.Tensor:
 def _rotate_top(U_top: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     """U_top' xb (p_k, B): the implicit scan's rotation of a block into the
     top space, its largest GEMM.  ``_rotate_top.count`` counts the calls, so
-    a run can show how often each block was rotated."""
+    a run can show how often each block was rotated; traced as a ``rotate``
+    span, as core/eigen.py::rotate is."""
     _rotate_top.count += 1
-    return pdot(U_top.T, xb)
+    with profiling.span("rotate", U_top.device, r=U_top.shape[1],
+                        n=U_top.shape[0], B=xb.shape[1]):
+        return pdot(U_top.T, xb)
 
 
 _rotate_top.count = 0
@@ -359,216 +365,242 @@ def pygemma(
          (:func:`~pygemma_tpu_torch.parallel.dist.sharded_eigh_fn`), for
          every ``eigh_backend`` but ``"host"``.
     """
-    dev = resolve_device(device)
-    cfg = config or from_env()
-    if grid:
-        cfg = cfg.replace(grid=True)
-    if tests is not None and tuple(tests) != cfg.tests:
-        cfg = cfg.replace(tests=tuple(tests))
-    _reject_unported(K, X, mesh)
-    if mesh is not None:
-        if rank_device(mesh).type != dev.type:
-            raise ValueError(f"the mesh's ranks run on {mesh.device_type}, "
-                             f"not on device={device!r}")
-        dev = rank_device(mesh)
-    writer = is_writer(mesh)
-    log = StageLogger(verbose)
-    if mesh is not None:
-        log.log(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
-                f"on {dev.type}, backend {torch.distributed.get_backend()}")
-
-    dtype = np.dtype(cfg.dtype)
-    Y = np.asarray(Y, dtype=dtype)
-    if Y.ndim == 1:
-        Y = Y[:, None]
-    if isinstance(X, _STREAMED):
-        # int8 / 2-bit codes stream to the device and dequantize there;
-        # the float matrix never exists on the host
-        if dtype != np.float32:
-            raise ValueError("quantized genotype streaming is float32-only")
-    else:
-        X = np.asarray(X, dtype=dtype)
-    n, p = X.shape
-    W = np.ones((n, 1), dtype=dtype) if W is None else np.asarray(W, dtype)
-    c = W.shape[1]
-
-    if not disable_checks:
-        for name, arr in (("X", X), ("Y", Y), ("W", W)):
-            if isinstance(arr, _STREAMED):
-                # codes cannot hold NaN, but a corrupt affine sidecar (NaN
-                # mu, non-finite or non-positive sd) would spread NaN/Inf
-                # into every dequantized value
-                if (np.isnan(arr.mu).any()
-                        or not np.all(np.isfinite(arr.sd))
-                        or (arr.sd <= 0).any()):
-                    raise ValueError(
-                        f"invalid quantization sidecar on {name}: "
-                        "mu must be finite and sd finite-positive")
-            elif np.isnan(arr).any():
-                raise ValueError(f"NaNs present in {name}")
-
-    def to_dev(a):
-        return torch.as_tensor(np.asarray(a, dtype)).to(dev)
-
-    def replicated(a):
-        """A host input on this rank's device; under a mesh, rank 0's."""
-        if mesh is None:
-            return to_dev(a)
-        return put_replicated(np.asarray(a, dtype), mesh)
-
-    lowrank = isinstance(K, LowRankKinship)
-    if Z is not None and eigen:
-        if lowrank:
-            raise ValueError("Z loading transform requires a dense K")
-        K = loading_transform(to_dev(Z), to_dev(K)).cpu().numpy()
-
-    ckpt = None
-    eig_key = ""
-    if eigen and K is not None:
-        fingerprint = _kinship_fingerprint(K if lowrank else np.asarray(K))
-        eig_key = f"{fingerprint}|{cfg.dtype}"
-    done = None  # the run_dir's finished block keys
-    if run_dir is not None:
-        error = None
-        if writer:  # under a mesh the run_dir is rank 0's alone
-            ckpt = RunCheckpoint(run_dir)
-            ckpt.clean_stale()
-            # Saved blocks are only resumable under the same settings.
-            run_meta = {"tests": list(cfg.tests), "grid": cfg.grid,
-                        "dtype": cfg.dtype, "de": de,
-                        "snp_block": cfg.snp_block}
-            prev_meta = ckpt.load_meta()
-            if prev_meta is None:
-                ckpt.save_meta(run_meta)
-            elif prev_meta != run_meta:
-                error = (f"run_dir {run_dir} holds blocks computed with "
-                         f"different settings ({prev_meta}); use a fresh "
-                         f"run_dir for {run_meta}")
-            done = set(ckpt.completed_blocks())
+    with profiling.span("pygemma") as call_span:
+        dev = resolve_device(device)
+        cfg = config or from_env()
+        if grid:
+            cfg = cfg.replace(grid=True)
+        if tests is not None and tuple(tests) != cfg.tests:
+            cfg = cfg.replace(tests=tuple(tests))
+        _reject_unported(K, X, mesh)
         if mesh is not None:
-            error, done = distributed.broadcast_object((error, done))
-        if error is not None:
-            raise ValueError(error)
-    if mesh is not None:
-        eig_key = distributed.broadcast_object(eig_key)
+            if rank_device(mesh).type != dev.type:
+                raise ValueError(
+                    f"the mesh's ranks run on {mesh.device_type}, "
+                    f"not on device={device!r}")
+            dev = rank_device(mesh)
+        writer = is_writer(mesh)
+        log = StageLogger(verbose)
+        if mesh is not None:
+            shape = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            log.log(f"mesh {shape} on {dev.type}, "
+                    f"backend {torch.distributed.get_backend()}")
 
-    def eigen_basis(key, stage, compute, sharded=None):
-        """(ev, U) on the device: from the device cache, the run_dir, or
-        ``compute()``; the result becomes the device cache's one entry.
-        Under a mesh, rank 0 finds or computes it and broadcasts it, unless
-        every rank holds it already; with ``sharded`` (a computation every
-        rank joins, which leaves the same bytes on every rank), rank 0 only
-        looks it up, and when it finds none every rank runs ``sharded()``."""
-        cache_key = (key, str(dev))
-        hit = _EIGEN_DEV_CACHE.get(cache_key)
-        if mesh is None and hit is not None:
-            return hit
-        if mesh is not None and distributed.all_true(hit is not None):
-            return hit
+        dtype = np.dtype(cfg.dtype)
+        Y = np.asarray(Y, dtype=dtype)
+        if Y.ndim == 1:
+            Y = Y[:, None]
+        if isinstance(X, _STREAMED):
+            # int8 / 2-bit codes stream to the device and dequantize there;
+            # the float matrix never exists on the host
+            if dtype != np.float32:
+                raise ValueError(
+                    "quantized genotype streaming is float32-only")
+        else:
+            X = np.asarray(X, dtype=dtype)
+        n, p = X.shape
+        W = np.ones((n, 1), dtype=dtype) if W is None else np.asarray(W, dtype)
+        c = W.shape[1]
 
-        def computed(fn):
-            with log.stage(stage):
-                ev_d, U_d = fn()
-            if ckpt is not None:
-                ckpt.save_eigen(ev_d.cpu().numpy(), U_d.cpu().numpy(), key)
+        if not disable_checks:
+            for name, arr in (("X", X), ("Y", Y), ("W", W)):
+                if isinstance(arr, _STREAMED):
+                    # codes cannot hold NaN, but a corrupt affine sidecar (NaN
+                    # mu, non-finite or non-positive sd) would spread NaN/Inf
+                    # into every dequantized value
+                    if (np.isnan(arr.mu).any()
+                            or not np.all(np.isfinite(arr.sd))
+                            or (arr.sd <= 0).any()):
+                        raise ValueError(
+                            f"invalid quantization sidecar on {name}: "
+                            "mu must be finite and sd finite-positive")
+                elif np.isnan(arr).any():
+                    raise ValueError(f"NaNs present in {name}")
+
+        def to_dev(a):
+            return torch.as_tensor(np.asarray(a, dtype)).to(dev)
+
+        def replicated(a):
+            """A host input on this rank's device; under a mesh, rank 0's."""
+            if mesh is None:
+                return to_dev(a)
+            return put_replicated(np.asarray(a, dtype), mesh)
+
+        lowrank = isinstance(K, LowRankKinship)
+        if Z is not None and eigen:
+            if lowrank:
+                raise ValueError("Z loading transform requires a dense K")
+            K = loading_transform(to_dev(Z), to_dev(K)).cpu().numpy()
+
+        ckpt = None
+        eig_key = ""
+        if eigen and K is not None:
+            fingerprint = _kinship_fingerprint(K if lowrank else np.asarray(K))
+            eig_key = f"{fingerprint}|{cfg.dtype}"
+        done = None  # the run_dir's finished block keys
+        if run_dir is not None:
+            error = None
+            if writer:  # under a mesh the run_dir is rank 0's alone
+                ckpt = RunCheckpoint(run_dir)
+                ckpt.clean_stale()
+                # Saved blocks are only resumable under the same settings.
+                run_meta = {"tests": list(cfg.tests), "grid": cfg.grid,
+                            "dtype": cfg.dtype, "de": de,
+                            "snp_block": cfg.snp_block}
+                prev_meta = ckpt.load_meta()
+                if prev_meta is None:
+                    ckpt.save_meta(run_meta)
+                elif prev_meta != run_meta:
+                    error = (f"run_dir {run_dir} holds blocks computed with "
+                             f"different settings ({prev_meta}); use a fresh "
+                             f"run_dir for {run_meta}")
+                done = set(ckpt.completed_blocks())
+            if mesh is not None:
+                error, done = distributed.broadcast_object((error, done))
+            if error is not None:
+                raise ValueError(error)
+        if mesh is not None:
+            eig_key = distributed.broadcast_object(eig_key)
+
+        def eigen_basis(key, stage, compute, sharded=None):
+            """(ev, U) on the device: from the device cache, the run_dir,
+            or ``compute()``; the result becomes the device cache's one
+            entry.  Under a mesh, rank 0 finds or computes it and broadcasts
+            it, unless every rank holds it already; with ``sharded`` (a
+            computation every rank joins, which leaves the same bytes on
+            every rank), rank 0 only looks it up, and when it finds none
+            every rank runs ``sharded()``.  Traced as an ``eigen`` span
+            whose ``source`` says where the basis came from."""
+            with profiling.span("eigen", dev) as sp:
+                return _eigen_basis(key, stage, compute, sharded, sp)
+
+        def _eigen_basis(key, stage, compute, sharded, sp):
+            cache_key = (key, str(dev))
+            hit = _EIGEN_DEV_CACHE.get(cache_key)
+            sp.set(source="cache")
+            if mesh is None and hit is not None:
+                return hit
+            if mesh is not None and distributed.all_true(hit is not None):
+                return hit
+
+            def computed(fn):
+                sp.set(source="computed")
+                with log.stage(stage):
+                    ev_d, U_d = fn()
+                if ckpt is not None:
+                    ckpt.save_eigen(ev_d.cpu().numpy(), U_d.cpu().numpy(),
+                                    key)
+                return ev_d, U_d
+
+            def obtain(fn):
+                if hit is not None:
+                    return hit
+                cached = ckpt.load_eigen(key) if ckpt is not None else None
+                if cached is not None:
+                    sp.set(source="run_dir")
+                    return to_dev(cached[0]), to_dev(cached[1])
+                return computed(fn) if fn is not None else None
+
+            if mesh is None:
+                ev_d, U_d = obtain(compute)
+            else:
+                parts = obtain(compute if sharded is None else None) \
+                    if writer else None
+                if sharded is not None and not distributed.broadcast_object(
+                        parts is not None):
+                    ev_d, U_d = computed(sharded)
+                else:
+                    with log.stage("broadcast of the eigenbasis"):
+                        ev_d, U_d = from_rank0(mesh, lambda: parts)
+                    if not writer:
+                        sp.set(source="rank0")
+            ev_d = ev_d.to(torch_dtype(dtype))
+            U_d = U_d.to(torch_dtype(dtype))
+            _EIGEN_DEV_CACHE.clear()
+            _EIGEN_DEV_CACHE[cache_key] = (ev_d, U_d)
             return ev_d, U_d
 
-        def obtain(fn):
-            if hit is not None:
-                return hit
-            cached = ckpt.load_eigen(key) if ckpt is not None else None
-            if cached is not None:
-                return to_dev(cached[0]), to_dev(cached[1])
-            return computed(fn) if fn is not None else None
+        B = min(cfg.snp_block, max(p, 1))
+        if mesh is not None:
+            # every rank of the snp axis takes an equal share of a block
+            n_snp = axis_shard(mesh, cfg.snp_axis)[1]
+            B = -(-B // n_snp) * n_snp
+        # the opt-in fill of the device block cache overlaps the
+        # decomposition (single-device runs only)
+        with (_prefill_overlap(X, B, dev) if mesh is None
+              else contextlib.nullcontext()):
+            # --- eigendecomposition + rotation (lmm/lmm.py:151-167,
+            # 243-246) ---
+            impl = None  # _ImplicitScan when the implicit path is active
+            if eigen and lowrank and cfg.lowrank_implicit is not False:
+                def top_basis():
+                    basis = lowrank_top_basis(K, cfg.eigh_backend,
+                                              device=dev)
+                    return basis.ev_top, basis.U_top
 
-        if mesh is None:
-            ev_d, U_d = obtain(compute)
-        else:
-            parts = obtain(compute if sharded is None else None) \
-                if writer else None
-            if sharded is not None and not distributed.broadcast_object(
-                    parts is not None):
-                ev_d, U_d = computed(sharded)
+                ev_dev, U_top = eigen_basis(
+                    eig_key + "|implicit",
+                    "implicit low-rank eigendecomposition", top_basis)
+                with log.stage("rotation of W, Y (top space)"):
+                    W_raw, Y_raw = replicated(W), replicated(Y)
+                    W_dev = rotate(U_top, W_raw)
+                    Y_dev = rotate(U_top, Y_raw)
+                U_dev = None  # no n x n basis exists on this path
+                impl = _ImplicitScan(U_top, W_raw, Y_raw, float(K.eps), n)
+            elif eigen:
+                if lowrank:
+                    def compute():
+                        return lowrank_eigendecompose(K, cfg.eigh_backend,
+                                                      dtype, device=dev)
+                else:
+                    def compute():
+                        return auto_eigendecompose(np.asarray(K, dtype),
+                                                   cfg.eigh_backend, dtype,
+                                                   dev)
+                sharded = None
+                if (not lowrank and mesh is not None
+                        and axis_shard(mesh, cfg.sample_axis)[1] > 1
+                        and cfg.eigh_backend != "host"):
+                    # the sample ranks decompose K's row slabs together
+                    def sharded():
+                        return sharded_eigh_fn(mesh, cfg)(
+                            np.asarray(K, dtype))
+                ev_dev, U_dev = eigen_basis(eig_key, "eigendecomposition",
+                                            compute, sharded)
+                with log.stage("rotation of W, Y"):
+                    W_dev = rotate(U_dev, replicated(W))
+                    Y_dev = rotate(U_dev, replicated(Y))
             else:
-                with log.stage("broadcast of the eigenbasis"):
-                    ev_d, U_d = from_rank0(mesh, lambda: parts)
-        ev_d, U_d = ev_d.to(torch_dtype(dtype)), U_d.to(torch_dtype(dtype))
-        _EIGEN_DEV_CACHE.clear()
-        _EIGEN_DEV_CACHE[cache_key] = (ev_d, U_d)
-        return ev_d, U_d
+                ev_dev = torch.clamp_min(
+                    replicated(np.asarray(K).reshape(-1)), 0.0)
+                U_dev = None
+                W_dev = replicated(W)
+                Y_dev = replicated(Y)
 
-    B = min(cfg.snp_block, max(p, 1))
-    if mesh is not None:
-        # every rank of the snp axis takes an equal share of a block
-        n_snp = axis_shard(mesh, cfg.snp_axis)[1]
-        B = -(-B // n_snp) * n_snp
-    # the opt-in fill of the device block cache overlaps the decomposition
-    # (single-device runs only)
-    with (_prefill_overlap(X, B, dev) if mesh is None
-          else contextlib.nullcontext()):
-        # --- eigendecomposition + rotation (lmm/lmm.py:151-167, 243-246) ---
-        impl = None  # _ImplicitScan when the implicit low-rank path is active
-        if eigen and lowrank and cfg.lowrank_implicit is not False:
-            def top_basis():
-                basis = lowrank_top_basis(K, cfg.eigh_backend, device=dev)
-                return basis.ev_top, basis.U_top
-
-            ev_dev, U_top = eigen_basis(eig_key + "|implicit",
-                                        "implicit low-rank eigendecomposition",
-                                        top_basis)
-            with log.stage("rotation of W, Y (top space)"):
-                W_raw, Y_raw = replicated(W), replicated(Y)
-                W_dev = rotate(U_top, W_raw)
-                Y_dev = rotate(U_top, Y_raw)
-            U_dev = None  # no n x n basis exists on this path
-            impl = _ImplicitScan(U_top, W_raw, Y_raw, float(K.eps), n)
-        elif eigen:
-            if lowrank:
-                def compute():
-                    return lowrank_eigendecompose(K, cfg.eigh_backend, dtype,
-                                                  device=dev)
+            n_pheno = Y.shape[1]
+            call_span.set(n=n, p=p, k=n_pheno,
+                          path=("implicit" if impl is not None else
+                                "rotated" if eigen else "prerotated"))
+            # Batched multi-phenotype scan (eQTL-style workloads; the
+            # reference runs a SLURM array per gene instead,
+            # experiments/1000G/run_pyGEMMA.sh:43-52).  run_dir resumes per
+            # phenotype, and a mesh gathers per phenotype, so both keep the
+            # looped scan.
+            if n_pheno >= 3 and run_dir is None and mesh is None:
+                frames = _scan_phenos_batched(X, Y_dev, W_dev, ev_dev, U_dev,
+                                              cfg, de, n, p, B, log, dev,
+                                              impl)
             else:
-                def compute():
-                    return auto_eigendecompose(np.asarray(K, dtype),
-                                               cfg.eigh_backend, dtype, dev)
-            sharded = None
-            if (not lowrank and mesh is not None
-                    and axis_shard(mesh, cfg.sample_axis)[1] > 1
-                    and cfg.eigh_backend != "host"):
-                # the sample ranks decompose K's row slabs together
-                def sharded():
-                    return sharded_eigh_fn(mesh, cfg)(np.asarray(K, dtype))
-            ev_dev, U_dev = eigen_basis(eig_key, "eigendecomposition", compute,
-                                        sharded)
-            with log.stage("rotation of W, Y"):
-                W_dev = rotate(U_dev, replicated(W))
-                Y_dev = rotate(U_dev, replicated(Y))
-        else:
-            ev_dev = torch.clamp_min(replicated(np.asarray(K).reshape(-1)),
-                                     0.0)
-            U_dev = None
-            W_dev = replicated(W)
-            Y_dev = replicated(Y)
-
-        n_pheno = Y.shape[1]
-        # Batched multi-phenotype scan (eQTL-style workloads; the reference
-        # runs a SLURM array per gene instead,
-        # experiments/1000G/run_pyGEMMA.sh:43-52).  run_dir resumes per
-        # phenotype, and a mesh gathers per phenotype, so both keep the
-        # looped scan.
-        if n_pheno >= 3 and run_dir is None and mesh is None:
-            frames = _scan_phenos_batched(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
-                                          de, n, p, B, log, dev, impl)
-        else:
-            frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg,
-                                         de, n, p, B, log, ckpt, dev, impl,
-                                         mesh, done)
-    results_df = pd.concat(frames, ignore_index=True) if len(frames) > 1 else frames[0]
-    if snps is not None:
-        results_df["SNPs"] = (
-            list(snps) * n_pheno if n_pheno > 1 else list(snps)
-        )
-    return results_df
+                frames = _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev,
+                                             cfg, de, n, p, B, log, ckpt, dev,
+                                             impl, mesh, done)
+        results_df = (pd.concat(frames, ignore_index=True)
+                      if len(frames) > 1 else frames[0])
+        if snps is not None:
+            results_df["SNPs"] = (
+                list(snps) * n_pheno if n_pheno > 1 else list(snps)
+            )
+        return results_df
 
 
 def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
@@ -594,7 +626,7 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
             def fit():
                 return (_fit_null(ev_dev, W_dev, y_dev, cfg, ictx),)
 
-            with log.stage("null-model fit"):
+            with log.stage("null-model fit", "null_fit"):
                 # under a mesh rank 0's, so D_lrt is the same on every rank
                 (null_arr,) = fit() if mesh is None else from_rank0(mesh, fit)
 
@@ -627,7 +659,7 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
             return blk
 
         try:
-            with log.stage(f"association scan ({p} SNPs, n={n})"):
+            with log.stage(f"association scan ({p} SNPs, n={n})", "scan"):
                 streamer = SnpBlockStreamer(X, B, dtype=X.dtype, device=dev,
                                             shard=shard)
                 for start, stop, xb_dev in log.track(
@@ -640,48 +672,52 @@ def _scan_phenos_looped(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
                             blk = distributed.broadcast_object(blk)
                         pending.append(("blk", blk))
                         continue
-                    block_ctx = None
-                    if impl is not None:
-                        xb_dev, vS_raw, vv_raw = _implicit_prep(
-                            impl.U_top, shared_raw, xb_dev)
-                        block_ctx = ictx._replace(vS_raw=vS_raw,
-                                                  vv_raw=vv_raw)
-                    elif U_dev is not None:
-                        xb_dev = rotate(U_dev, xb_dev)
-                    stacked = _assoc_block(ev_dev, W_dev, y_dev, xb_dev, cfg,
-                                           null_arr, de, block_ctx)
-                    if done is None:
-                        pending.append((m, stacked))
-                    elif mesh is None:
-                        pending.append(writer.submit(_pull_save, start, m,
-                                                     stacked))
-                    else:
-                        blk = block_to_cols(gather_columns(
-                            [stacked], mesh, cfg.snp_axis, m), m)
-                        pending.append(writer.submit(_save, start, blk)
-                                       if writer is not None
-                                       else ("blk", blk))
+                    with profiling.span("block", start=start, stop=stop):
+                        block_ctx = None
+                        if impl is not None:
+                            xb_dev, vS_raw, vv_raw = _implicit_prep(
+                                impl.U_top, shared_raw, xb_dev)
+                            block_ctx = ictx._replace(vS_raw=vS_raw,
+                                                      vv_raw=vv_raw)
+                        elif U_dev is not None:
+                            xb_dev = rotate(U_dev, xb_dev)
+                        stacked = _assoc_block(ev_dev, W_dev, y_dev, xb_dev,
+                                               cfg, null_arr, de, block_ctx)
+                        if done is None:
+                            pending.append((m, stacked))
+                        elif mesh is None:
+                            pending.append(writer.submit(_pull_save, start,
+                                                         m, stacked))
+                        else:
+                            blk = block_to_cols(gather_columns(
+                                [stacked], mesh, cfg.snp_axis, m), m)
+                            pending.append(writer.submit(_save, start, blk)
+                                           if writer is not None
+                                           else ("blk", blk))
 
-                if mesh is not None and done is None:
-                    # one gather of every block's shares
-                    pending = [("blk", block_to_cols(gather_columns(
-                        [t for _, t in pending], mesh, cfg.snp_axis, p), p))]
-                for item in pending:
-                    if isinstance(item, tuple) and item[0] == "blk":
-                        blk = item[1]
-                    elif isinstance(item, tuple):
-                        blk = block_to_cols(item[1].cpu().numpy(), item[0])
-                    else:
-                        blk = item.result()  # writer future
-                    for k in cols:
-                        cols[k].append(blk[k])
+                with profiling.span("table"):
+                    if mesh is not None and done is None:
+                        # one gather of every block's shares
+                        pending = [("blk", block_to_cols(gather_columns(
+                            [t for _, t in pending], mesh, cfg.snp_axis, p),
+                            p))]
+                    for item in pending:
+                        if isinstance(item, tuple) and item[0] == "blk":
+                            blk = item[1]
+                        elif isinstance(item, tuple):
+                            blk = block_to_cols(item[1].cpu().numpy(),
+                                                item[0])
+                        else:
+                            blk = item.result()  # writer future
+                        for k in cols:
+                            cols[k].append(blk[k])
+                    out = {k: np.concatenate(v) if v else np.array([])
+                           for k, v in cols.items()}
+                    frames.append(_frame(out, n, c, cfg.tests,
+                                         ph if n_pheno > 1 else None))
         finally:
             if writer is not None:
                 writer.shutdown()
-
-        out = {k: np.concatenate(v) if v else np.array([]) for k, v in cols.items()}
-        frames.append(_frame(out, n, c, cfg.tests,
-                             ph if n_pheno > 1 else None))
 
     return frames
 
@@ -714,33 +750,39 @@ def _scan_phenos_batched(X, Y_dev, W_dev, ev_dev, U_dev, cfg, de, n, p, B,
                                 WtW.new_zeros((1,)))
     null_stack = None
     if ("lrt" in cfg.tests) or ("score" in cfg.tests):
-        with log.stage(f"null-model fits ({n_pheno} phenotypes)"):
+        with log.stage(f"null-model fits ({n_pheno} phenotypes)",
+                       "null_fit"):
             null_stack = fit_null_multi(ev_dev, W_dev, Y_kn, cfg, base)
 
     keys = _result_keys(cfg)
     pending = []  # (m, stacked (n_keys, k, B) device tensor)
+    frames = []
     with log.stage(
-            f"association scan ({p} SNPs x {n_pheno} phenotypes, n={n})"):
+            f"association scan ({p} SNPs x {n_pheno} phenotypes, n={n})",
+            "scan"):
         streamer = SnpBlockStreamer(X, B, dtype=X.dtype, device=dev)
         for start, stop, xb_dev in log.track(
                 streamer, "Testing SNPs...", total=-(-p // B)):
-            ictx = None
-            if impl is not None:
-                xb_dev, XtW, XtY, vv = _implicit_multi_prep(
-                    impl.U_top, impl.W_raw, impl.Y_raw, xb_dev)
-                ictx = base._replace(XtW=XtW, XtY=XtY, vv=vv)
-            elif U_dev is not None:
-                xb_dev = rotate(U_dev, xb_dev)
-            pending.append((stop - start, _assoc_multi(
-                ev_dev, W_dev, Y_kn, xb_dev, cfg, null_stack, de, ictx)))
-        host = [(m, stacked.cpu().numpy()) for m, stacked in pending]
-    full = {k: np.concatenate([h[i, :, :m] for m, h in host], axis=1)
-            for i, k in enumerate(keys)}  # (k, p) each
-    null_host = null_stack.cpu().numpy() if null_stack is not None else None
-    frames = []
-    for ph in range(n_pheno):
-        null_ml = float(null_host[ph, 2]) if null_host is not None else None
-        out = _table_columns({k: v[ph] for k, v in full.items()}, null_ml,
-                             cfg.tests)
-        frames.append(_frame(out, n, c, cfg.tests, ph))
+            with profiling.span("block", start=start, stop=stop):
+                ictx = None
+                if impl is not None:
+                    xb_dev, XtW, XtY, vv = _implicit_multi_prep(
+                        impl.U_top, impl.W_raw, impl.Y_raw, xb_dev)
+                    ictx = base._replace(XtW=XtW, XtY=XtY, vv=vv)
+                elif U_dev is not None:
+                    xb_dev = rotate(U_dev, xb_dev)
+                pending.append((stop - start, _assoc_multi(
+                    ev_dev, W_dev, Y_kn, xb_dev, cfg, null_stack, de, ictx)))
+        with profiling.span("table"):
+            host = [(m, stacked.cpu().numpy()) for m, stacked in pending]
+            full = {k: np.concatenate([h[i, :, :m] for m, h in host], axis=1)
+                    for i, k in enumerate(keys)}  # (k, p) each
+            null_host = (null_stack.cpu().numpy()
+                         if null_stack is not None else None)
+            for ph in range(n_pheno):
+                null_ml = (float(null_host[ph, 2])
+                           if null_host is not None else None)
+                out = _table_columns({k: v[ph] for k, v in full.items()},
+                                     null_ml, cfg.tests)
+                frames.append(_frame(out, n, c, cfg.tests, ph))
     return frames

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, torch_dtype
+from ..utils import profiling
 from .eigh_dc import eigh_dc
 
 
@@ -32,8 +33,11 @@ def eigendecompose(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def rotate(U: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-    """Rotate columns of M into the eigenbasis: U' M (lmm/lmm.py:243-246)."""
-    return torch.matmul(U.T, M)
+    """Rotate columns of M into the eigenbasis: U' M (lmm/lmm.py:243-246).
+    Traced as a ``rotate`` span of U' (r, n) times M (n, B)."""
+    with profiling.span("rotate", U.device, r=U.shape[1], n=U.shape[0],
+                        B=M.shape[1] if M.ndim == 2 else 1):
+        return torch.matmul(U.T, M)
 
 
 def loading_transform(Z: torch.Tensor, K: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,6 @@ against a dense float64 eigh and the scan against the JAX package.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -29,6 +28,7 @@ import torch
 
 from ..device import resolve_device, torch_dtype
 from ..io.streaming import SnpBlockStreamer
+from ..utils import profiling
 from .eigen import auto_eigendecompose
 
 #: SNP columns per block when G streams to the device for its Gram
@@ -146,7 +146,6 @@ def _stream_gram(lrk: LowRankKinship, block: int, device: torch.device):
 
 def _top_space(lrk: LowRankKinship, backend: str, block: int,
                rank_rtol: float, device: torch.device,
-               timings: Optional[dict] = None,
                respool_bytes: int = 1 << 31):
     """(ev_top, U_top, a, a_ok, n_null): the exact top eigenspace of K.
 
@@ -154,39 +153,29 @@ def _top_space(lrk: LowRankKinship, backend: str, block: int,
     rank-deficient ones (whose U_top column is zeroed), so the weight sums
     over the p_k entries are exact with fixed shapes.
 
-    ``timings`` (optional dict) receives per-stage wall seconds, with a
-    device synchronize at each stage boundary: pass it only to measure.
+    Its stages are the spans ``lowrank.stream_gram``, ``lowrank.gram_eigh``
+    and ``lowrank.top_basis`` (utils/profiling.py).
     """
-
-    def lap(name):
-        nonlocal t0
-        if timings is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            timings[name] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-
-    t0 = time.perf_counter()
-    A, Gc = _stream_gram(lrk, block, device)
-    # at large n the (n, p_k) float32 G and the Gram eigh's workspace need
-    # not sit on the device together: drop G and re-stream it after the
-    # eigh (the rebuild is deterministic)
-    respool = lrk.n * lrk.pk * 4 > respool_bytes
-    if respool:
-        del Gc
-    lap("stream_gram_s")
-    a, V = auto_eigendecompose(A, backend=backend, dtype=np.float32,
-                               device=device)
-    a = torch.clamp_min(a, 0.0)
-    del A
-    lap("gram_eigh_s")
-    if respool:
-        _, Gc = _stream_gram(lrk, block, device)
-    rank_tol = float(rank_rtol) * float(torch.max(a))
-    U_top, a_ok = _top_basis(Gc, V, a, lrk.scale, rank_tol)
-    n_null = int(torch.sum(~a_ok))
-    ev_top = torch.where(a_ok, a, 0.0) + lrk.eps
-    lap("top_basis_s")
+    with profiling.span("lowrank.stream_gram", device):
+        A, Gc = _stream_gram(lrk, block, device)
+        # at large n the (n, p_k) float32 G and the Gram eigh's workspace
+        # need not sit on the device together: drop G and re-stream it
+        # after the eigh (the rebuild is deterministic)
+        respool = lrk.n * lrk.pk * 4 > respool_bytes
+        if respool:
+            del Gc
+    with profiling.span("lowrank.gram_eigh", device):
+        a, V = auto_eigendecompose(A, backend=backend, dtype=np.float32,
+                                   device=device)
+        a = torch.clamp_min(a, 0.0)
+        del A
+    with profiling.span("lowrank.top_basis", device):
+        if respool:
+            _, Gc = _stream_gram(lrk, block, device)
+        rank_tol = float(rank_rtol) * float(torch.max(a))
+        U_top, a_ok = _top_basis(Gc, V, a, lrk.scale, rank_tol)
+        n_null = int(torch.sum(~a_ok))
+        ev_top = torch.where(a_ok, a, 0.0) + lrk.eps
     return ev_top, U_top, a, a_ok, n_null
 
 
@@ -195,7 +184,6 @@ def lowrank_top_basis(
     backend: str = "auto",
     block: int = GRAM_BLOCK,
     rank_rtol: float = 1e-6,
-    timings: Optional[dict] = None,
     respool_bytes: int = 1 << 31,
     device="cuda",
 ) -> ImplicitBasis:
@@ -207,7 +195,7 @@ def lowrank_top_basis(
     """
     dev = resolve_device(device)
     ev_top, U_top, _, _, _ = _top_space(lrk, backend, block, rank_rtol, dev,
-                                        timings, respool_bytes)
+                                        respool_bytes)
     return ImplicitBasis(torch.clamp_min(ev_top, 0.0), U_top,
                          float(lrk.eps), lrk.n)
 

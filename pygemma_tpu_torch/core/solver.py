@@ -23,7 +23,9 @@ same semantics run as masked updates over the whole SNP block:
 
 The loops are host loops.  They wait for the device at two places only:
 the number of root batches (once per solve) and Newton's early exit (once
-per iteration); :func:`host_value` counts both.
+per iteration); :func:`host_value` counts both, and ``evaluate.count``
+counts the evaluations.  With tracing on (utils/profiling.py) a solve is a
+``lambda`` span and each wait a ``sync`` span.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import GwasConfig
+from ..utils import profiling
 from . import reml
 from .grams import (
     GramComplement,
@@ -50,7 +53,8 @@ def host_value(t: torch.Tensor):
     """Pull a scalar to the host (a device sync on CUDA), counted in
     ``host_value.count``."""
     host_value.count += 1
-    return t.item()
+    with profiling.span("sync"):
+        return t.item()
 
 
 host_value.count = 0
@@ -97,7 +101,9 @@ def evaluate(problem: LambdaProblem, lam, need: str, shared_lam):
     ``shared_lam=True`` takes a scalar lambda (GEMM fast path);
     ``shared_lam="multi"`` takes a (G,) lambda grid and returns (G, B)
     outputs from one wide GEMM; otherwise ``lam`` is (B,) or (B, R).
+    ``evaluate.count`` counts the calls.
     """
+    evaluate.count += 1
     ks = _KS[need]
     kw = dict(want_logh=need == "lik", comp=problem.comp)
     args = (problem.ev, problem.shared, problem.pairs, problem.v)
@@ -147,6 +153,9 @@ def evaluate(problem: LambdaProblem, lam, need: str, shared_lam):
     return d1, d2
 
 
+evaluate.count = 0
+
+
 def _sign(x):
     """Sign with sign(0) = +1, mirroring copysignf(1.0, x) (pyx:174)."""
     return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
@@ -171,7 +180,19 @@ def _decade_table(lo_pow: float, n_grid: int, dtype: torch.dtype,
 
 def solve_lambda(problem: LambdaProblem, cfg: GwasConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Return (lambda_star, loglik_star), each (B,)."""
+    """Return (lambda_star, loglik_star), each (B,).  Traced as a
+    ``lambda`` span with its root batches, Newton iterations and
+    evaluations."""
+    evals = evaluate.count
+    with profiling.span("lambda") as sp:
+        out, batches, newton = _solve_lambda(problem, cfg)
+        sp.set(batches=batches, newton=newton,
+               evals=evaluate.count - evals)
+    return out
+
+
+def _solve_lambda(problem: LambdaProblem, cfg: GwasConfig):
+    """(solve_lambda's result, root batches, Newton iterations run)."""
     dtype = problem.v.dtype
     device = problem.v.device
     B = problem.v.shape[1]
@@ -187,7 +208,7 @@ def solve_lambda(problem: LambdaProblem, cfg: GwasConfig
         liks = liks.expand(cand.shape[0], B).T
         best = torch.argmax(liks, dim=1)
         lam_star = cand[best]
-        return lam_star, torch.gather(liks, 1, best[:, None])[:, 0]
+        return (lam_star, torch.gather(liks, 1, best[:, None])[:, 0]), 0, 0
 
     # --- stage 1: one wide-GEMM decade sweep of d1 -------------------------
     d1_grid = evaluate(problem, decades, "d1", "multi")  # (n_grid, B)
@@ -231,10 +252,12 @@ def solve_lambda(problem: LambdaProblem, cfg: GwasConfig
 
         # masked safeguarded Newton (pyx:1349-1416); updates are masked, so
         # the early exit once every lane has stopped changes nothing
+        nonlocal newton
         done = ~valid_r
         for _ in range(cfg.newton_iters):
             if host_value(torch.all(done)):
                 break
+            newton += 1
             d1, d2 = evaluate(prob, lam_r, "newton", False)
             ratio = d1 / d2
             # pyx:1392 -- stop without updating when the three-way sign
@@ -256,6 +279,7 @@ def solve_lambda(problem: LambdaProblem, cfg: GwasConfig
         lik_r = torch.where(valid_r, lik_r, -torch.inf)
         return lam_r, lik_r
 
+    newton = 0
     # Lane l of a compacted batch works on SNP sel[l] // R, bracket slot
     # sel[l] % R; lanes past the last root are masked invalid (their Newton
     # state starts "done" and their likelihood is forced to -inf).  Each
@@ -297,4 +321,4 @@ def solve_lambda(problem: LambdaProblem, cfg: GwasConfig
     best = torch.argmax(liks, dim=1)
     lam_star = torch.gather(lams, 1, best[:, None])[:, 0]
     lik_star = torch.gather(liks, 1, best[:, None])[:, 0]
-    return lam_star, lik_star
+    return (lam_star, lik_star), n_batches, newton

@@ -20,6 +20,10 @@ on the consumer's stream.  On the CPU a block is a padded host slice.
 Packed blocks can also stay on the device between scans (the device block
 cache below), filled either by the scan itself or ahead of it by
 :func:`prefill_device_cache`.
+
+With tracing on (utils/profiling.py) the consumer's waits for a block are
+``stream.wait`` spans, the worker's fills ``stream.fill`` spans and the
+device dequantization ``dequant`` spans.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from ..device import resolve_device, torch_dtype
 from ..parallel.mesh import local_columns
+from ..utils import profiling
 from .packed import PackedMatrix, dequantize_packed_device
 from .quantized import QuantizedMatrix, dequantize_device
 
@@ -226,11 +231,14 @@ class SnpBlockStreamer:
     def _stage(self, start: int, stop: int):
         """Block [start, stop) on the device as its raw tensors, plus the
         event its copies recorded (None on the CPU)."""
-        if self._cuda:
-            return self._stager.put(lambda outs: self._fill(start, stop, outs))
-        outs = [np.empty(shape, dt) for shape, dt in self._specs]
-        self._fill(start, stop, outs)
-        return tuple(torch.from_numpy(o) for o in outs), None
+        with profiling.span("stream.fill", start=start, stop=stop,
+                            bytes=self.block_bytes):
+            if self._cuda:
+                return self._stager.put(
+                    lambda outs: self._fill(start, stop, outs))
+            outs = [np.empty(shape, dt) for shape, dt in self._specs]
+            self._fill(start, stop, outs)
+            return tuple(torch.from_numpy(o) for o in outs), None
 
     def _key(self, start: int, stop: int):
         return (self._token, start, stop, self.block, self.shard,
@@ -251,13 +259,14 @@ class SnpBlockStreamer:
         return start, stop, tensors, ready
 
     def _decode(self, tensors) -> torch.Tensor:
-        if self.kind == "packed":
-            return dequantize_packed_device(*tensors, n=self.X.n,
-                                            coding=self.X.coding)
-        if self.kind == "int8":
+        if self.kind == "dense":
+            return tensors[0].to(self.device)
+        with profiling.span("dequant", self.device):
+            if self.kind == "packed":
+                return dequantize_packed_device(*tensors, n=self.X.n,
+                                                coding=self.X.coding)
             return dequantize_device(*tensors,
                                      missing_code=self.X.missing_code)
-        return tensors[0].to(self.device)
 
     def _open(self, n_blocks: int) -> None:
         if self._cuda and self._stager is None:
@@ -277,16 +286,18 @@ class SnpBlockStreamer:
         # blocks ride ahead of the consumer
         with cf.ThreadPoolExecutor(max_workers=1) as pool:
             pending = deque()
+            fetch = profiling.carry(self._fetch)
             for k, s in enumerate(starts):
-                pending.append(pool.submit(self._fetch, s))
+                pending.append(pool.submit(fetch, s))
                 if len(pending) <= self.depth and k + 1 < len(starts):
                     continue
-                yield self._ready(pending.popleft().result(), consumer)
+                yield self._ready(pending.popleft(), consumer)
             while pending:
-                yield self._ready(pending.popleft().result(), consumer)
+                yield self._ready(pending.popleft(), consumer)
 
-    def _ready(self, item, consumer):
-        start, stop, tensors, ready = item
+    def _ready(self, future, consumer):
+        with profiling.span("stream.wait"):
+            start, stop, tensors, ready = future.result()
         if ready is not None:
             consumer.wait_event(ready)
             # the tensors were allocated on another stream: keep the caching

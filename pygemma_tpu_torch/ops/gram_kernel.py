@@ -14,7 +14,8 @@ on the card and how its design answers that.
 contract (return shapes, ascending k, float32 outputs even for float64
 inputs).  On a CUDA tensor it launches the kernel, or raises; on a CPU
 tensor it runs :func:`fused_grams_reference`, the kernel's plain PyTorch
-version.  ``fused_grams.launches`` counts kernel launches.
+version.  ``fused_grams.launches`` counts kernel launches; with tracing on
+(utils/profiling.py) each launch is a ``k1`` span with its shape.
 
 The kernel is built at first use with ``nvcc`` into ``_build/`` (listed in
 .gitignore) and bound with ``ctypes``: no PyTorch headers, so a build takes
@@ -36,6 +37,7 @@ from typing import Tuple
 import torch
 
 from ..core.grams import grams_per_snp_lambda, index_tensor, pair_index
+from ..utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "gram_kernel.cu"
@@ -201,11 +203,13 @@ def launch(lib: ctypes.CDLL, lam, ev, pairs, shared, v, kmax: int,
         part = torch.empty((nsplit, rows, B * R), dtype=torch.float32,
                            device=dev)
         out = torch.empty((rows, B, R), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gram_fused_launch(
-            lam.data_ptr(), ev.data_ptr(), pairs.data_ptr(),
-            shared.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(),
-            n, B, R, m, s, kmax, int(want_logh), nsplit, plan_span, stream)
+        args = (lam.data_ptr(), ev.data_ptr(), pairs.data_ptr(),
+                shared.data_ptr(), v.data_ptr(), part.data_ptr(),
+                out.data_ptr(), n, B, R, m, s, kmax, int(want_logh), nsplit,
+                plan_span, torch.cuda.current_stream(dev).cuda_stream)
+        with profiling.span("k1", dev, n=n, B=B, R=R, m=m, s=s, kmax=kmax,
+                            want_logh=bool(want_logh)):
+            err = lib.gram_fused_launch(*args)
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
     fused_grams.launches += 1

@@ -3,7 +3,8 @@
 Mirrors the reference's stage logs (lmm/lmm.py:144-163): with ``verbose``
 on, each stage ends with one plain line on stderr, ``<stage> - <seconds> s``,
 which the command line's users and scripts can read; the SNP loop shows a
-rich progress bar when rich is installed.  In a multi-GPU run only rank 0
+rich progress bar when rich is installed.  A stage given a span name is
+also that span of utils/profiling.py.  In a multi-GPU run only rank 0
 logs: the other ranks run the same stages.
 """
 
@@ -12,8 +13,11 @@ from __future__ import annotations
 import contextlib
 import sys
 import time
+from typing import Optional
 
 import torch.distributed as dist
+
+from . import profiling
 
 
 def _quiet_rank() -> bool:
@@ -33,12 +37,15 @@ class StageLogger:
             print(msg, file=sys.stderr, flush=True)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, span: Optional[str] = None):
+        """Log the body's wall time as ``name``; with ``span``, record the
+        body as that span too."""
         start = time.time()
-        try:
-            yield
-        finally:
-            self.log(f"{name} - {time.time() - start:.3f} s")
+        with profiling.span(span):
+            try:
+                yield
+            finally:
+                self.log(f"{name} - {time.time() - start:.3f} s")
 
     def track(self, iterable, description: str = "", total=None):
         """Progress bar over an iterable (reference rich.progress.track SNP

@@ -1,11 +1,7 @@
-"""The port's ``compare`` (cross-tool bridges, the NumPy EMMA) and
-``utils/profiling`` against the JAX package's, on the same inputs: the
-bridges are driven with stub binaries, as tests/test_extras.py drives the
-JAX package's, and must write the same input files and parse the same
-tables."""
-
-import json
-import os
+"""The port's ``compare`` (cross-tool bridges, the NumPy EMMA) against
+the JAX package's, on the same inputs: the bridges are driven with stub
+binaries, as tests/test_extras.py drives the JAX package's, and must write
+the same input files and parse the same tables."""
 
 import numpy as np
 import pandas as pd
@@ -14,9 +10,7 @@ import torch
 
 import oracle
 from pygemma_tpu import compare as jcmp
-from pygemma_tpu.utils import profiling as jprof
 from pygemma_tpu_torch import compare as tcmp
-from pygemma_tpu_torch.utils import profiling as tprof
 
 torch.set_num_threads(2)
 
@@ -150,36 +144,3 @@ def test_compare_pvalues_matches_jax(a, b):
     assert got.keys() == ref.keys()
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-
-
-def test_stage_timer_report_matches_jax(monkeypatch):
-    """The same buckets give the JAX package's report, to the character."""
-    timers = []
-    for mod in (tprof, jprof):
-        clock = iter([0.0, 1.25, 2.0, 2.5, 3.0, 3.004])
-        monkeypatch.setattr(mod.time, "time", lambda c=clock: next(c))
-        st = mod.StageTimer()
-        for name in ("read", "scan", "read"):
-            with st.stage(name):
-                pass
-        timers.append(st)
-    assert timers[0].totals == timers[1].totals
-    assert timers[0].report() == timers[1].report() \
-        == "read: 1.25s | scan: 0.50s"
-
-
-def test_host_profile_prints_the_hottest_entries(capsys):
-    with tprof.host_profile(top=3):
-        sorted(np.random.default_rng(0).normal(size=1000))
-    out = capsys.readouterr().out
-    assert "function calls" in out and "cumtime" in out
-
-
-def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
-    with tprof.device_trace(str(tmp_path / "tr")) as path:
-        torch.matmul(torch.ones(64, 64), torch.ones(64, 64))
-    with open(path) as f:
-        trace = json.load(f)
-    assert path == os.path.join(str(tmp_path / "tr"), "trace.json")
-    names = {e.get("name", "") for e in trace["traceEvents"]}
-    assert any("mm" in name for name in names)

@@ -4,7 +4,8 @@ streamer for float, 2-bit and int8 genotypes, the device block cache under a
 racing prefill, the scan on the card against the scan on the CPU (one
 phenotype and the batched four), the kinship GEMM, the command line, and
 the multi-GPU path: two ranks sharing the card over gloo, a one-rank NCCL
-mesh, ``--mesh 2``, and the kernel on a card that is not the current one.
+mesh, ``--mesh 2``, the kernel on a card that is not the current one, and
+the trace spans' device clock against torch.profiler's.
 
 The module imports neither jax nor pygemma_tpu, so on a machine with a card
 it runs without the JAX-configuring conftest:
@@ -317,6 +318,65 @@ def test_scan_float32_kernel_on_matches_off(data, cuda):
     np.testing.assert_array_equal(np.isnan(p_on), np.isnan(p_off))
     ok = ~np.isnan(p_off)
     assert np.abs(np.log10(p_on[ok]) - np.log10(p_off[ok])).max() < 0.05
+
+
+def _k1_kernels(prof):
+    """(start, end) ns of each K1 launch in a torch.profiler trace: its
+    partials kernel's start and its reduce kernel's end, in order."""
+    from torch.autograd import DeviceType
+
+    found = {name: [] for name in gk.KERNEL_NAMES}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        for name in gk.KERNEL_NAMES:
+            if name in ev.name():
+                found[name].append((ev.start_ns(),
+                                    ev.start_ns() + ev.duration_ns()))
+    parts, reduces = (sorted(found[name]) for name in gk.KERNEL_NAMES)
+    assert len(parts) == len(reduces)
+    return [(p[0], r[1]) for p, r in zip(parts, reduces)]
+
+
+def test_spans_share_the_profiler_clock(cuda):
+    """With markers on under torch.profiler, each ``k1`` span's device
+    interval ends within 50 us of the profiler's K1 kernels and opens no
+    later than 50 us after them (for 99% of the launches): spans and trace
+    share one clock.  The span opens before the launch call, so on an idle
+    card it also holds the launch's own latency.  The span counts match
+    the program's counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pygemma_tpu_torch import api
+    from pygemma_tpu_torch.utils import profiling
+
+    y, G, W, K = oracle.simulate(n=2000, p=2048, c=3, seed=6)
+    cfg = pt.GwasConfig(snp_block=256)
+    pt.pygemma(y, G, W, K, config=cfg, device=cuda)  # warm: K1, the basis
+    launches, rotations = gk.fused_grams.launches, api._rotate_top.count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiling.enable()
+        try:
+            pt.pygemma(y, G, W, K, config=cfg, device=cuda)
+            spans = profiling.collect()
+        finally:
+            profiling.disable()
+    k1 = [s for s in spans if s.name == "k1"]
+    assert len(k1) == gk.fused_grams.launches - launches > 0
+    assert api._rotate_top.count == rotations  # a dense K: no top space
+    blocks = {s.id for s in spans if s.name == "block"}
+    assert len(blocks) == 2048 // 256
+    assert sum(1 for s in spans
+               if s.name == "rotate" and s.parent in blocks) == len(blocks)
+    kernels = _k1_kernels(prof)
+    assert len(kernels) == len(k1)
+    d0 = np.array([s.device_start_ns - k[0] for s, k in zip(k1, kernels)])
+    d1 = np.array([s.device_end_ns - k[1] for s, k in zip(k1, kernels)])
+    print(f"k1 spans {len(k1)}, span minus kernel in us (p1, median, p99): "
+          f"start {np.percentile(d0, [1, 50, 99]) / 1e3}, "
+          f"end {np.percentile(d1, [1, 50, 99]) / 1e3}")
+    assert np.mean((d0 <= 50_000) & (np.abs(d1) <= 50_000)) >= 0.99
 
 
 _MESH_RANK = r"""

@@ -32,6 +32,7 @@ from pygemma_tpu_torch.core import grams as tgrams
 from pygemma_tpu_torch.core import lowrank as tlow
 from pygemma_tpu_torch.core.eigen import auto_eigendecompose
 from pygemma_tpu_torch.io import packed as tpacked
+from pygemma_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -111,10 +112,16 @@ def test_lowrank_from_streamed_source(rng, source):
 def test_top_basis_respool_matches_resident(rng):
     G, _, _, _ = _case(rng, n=120, pk=32)
     lrk = tlow.LowRankKinship(G, eps=1e-3)
-    timings = {}
-    a = tlow.lowrank_top_basis(lrk, device=CPU, timings=timings)
+    profiling.enable()
+    try:
+        a = tlow.lowrank_top_basis(lrk, device=CPU)
+        stages = [s.name for s in profiling.collect()
+                  if s.name.startswith("lowrank.")]
+    finally:
+        profiling.disable()
     b = tlow.lowrank_top_basis(lrk, device=CPU, respool_bytes=0)
-    assert set(timings) == {"stream_gram_s", "gram_eigh_s", "top_basis_s"}
+    assert stages == ["lowrank.stream_gram", "lowrank.gram_eigh",
+                      "lowrank.top_basis"]
     assert torch.equal(a.ev_top, b.ev_top) and torch.equal(a.U_top, b.U_top)
 
 
