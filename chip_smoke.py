@@ -12,7 +12,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build: the hand-written kernel (``csrc/gram_kernel.cu``) with nvcc and
    the host .bed decoder (``native/bed_reader.cpp``) with g++, at once;
 3. kernel parity: ``fused_grams`` through the kernel against its plain
-   PyTorch version on the card at the main path's shapes;
+   PyTorch version on the card at the main path's shapes; then the REML
+   kernel (``csrc/reml_kernel.cu``) against its plain version in every
+   mode (d1 over a lambda grid, bisection, Newton, likelihood, Wald) at
+   the dense scan's shape (n = 10,000, blocks of 2,048) and the implicit
+   one (a top space of 16,384 with the complement, blocks of 4,096), held
+   to the gpu tests' 1e-5-of-scale rule with every decision equal;
 4. small end to end: the port's ``pygemma`` on the card in float32 against
    the float64 NumPy oracle (tests/oracle.py), and in float64 against the
    port on the CPU;
@@ -24,7 +29,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``run_dir`` checkpointing: the top basis timed alone, the scan cold and
    warm with the kernel's launches and host syncs counted, checks on the
    first block (device dequant against the host slice, float32 input,
-   kernel off, the explicit full basis), the device block cache with and
+   both kernels off, the explicit full basis), the device block cache with and
    without the prefill thread, and a PLINK .bed slice against the same
    codes in the dosage coding;
 6. full width, dense K: n = 10,000 samples, p = 50,000 SNPs, c = 3, REML
@@ -34,9 +39,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel);
 7. kernel times at both paths' shapes: the kernel's device time per call
    (torch.profiler), its wall time per call and the plain version's wall
-   time.  Phases 5, 6, 9 and 10 time their scans before any profiler runs,
+   time; the same for the REML kernel in each mode of phase 3's cases.
+   Phases 5, 6, 9 and 10 time their scans before any profiler runs,
    because the profiler, once run, slows every later launch from the host;
-8. one JSON line per kernel (phase 12a's scan is one of its paths), and a
+8. one JSON line of the kernels, K1 and the REML kernel, each with its
+   launches by path (phase 12a's scan is one of them; every path counts
+   the REML kernel's launches against the search's evaluations), and a
    last line ``{"ok": true, "device": {...}}``;
 9. (run right after phase 5, on its cohort) the batched multi-phenotype
    scan, bench.py:401-423: y and three more phenotypes built as there, one
@@ -96,6 +104,7 @@ It exits non-zero without printing a result when no CUDA device is present.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import json
 import os
 import subprocess
@@ -150,6 +159,34 @@ def card_line() -> str:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def reml_launches(solver, wald_steps, label):
+    """The REML kernel's launches and the lambda search's evaluations since
+    both counters were set to 0, checked: every evaluation launched the
+    kernel once, and so did each of ``wald_steps`` Wald steps (blocks x
+    phenotypes; None where a phase cannot count them)."""
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    launches, evals = rk.reml_kernel.launches, solver.evaluate.count
+    check(evals > 0 and launches >= evals,
+          f"{label}: {launches} REML kernel launches for {evals} "
+          "evaluations")
+    if wald_steps is not None:
+        check(launches == evals + wald_steps,
+              f"{label}: {launches} REML kernel launches for {evals} "
+              f"evaluations and {wald_steps} Wald steps")
+    return launches, evals
+
+
+def reset_launches(gk, solver):
+    """Set K1's and the REML kernel's launch counters and the search's
+    evaluation counter to 0."""
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    gk.fused_grams.launches = 0
+    rk.reml_kernel.launches = 0
+    solver.evaluate.count = 0
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -307,6 +344,262 @@ def phase_kernel_times(gk):
     implicit = kernel_time_row(gk, PK_LARGE, BLOCK_LARGE, C_LARGE, 3, False,
                                gen)
     return rows, implicit
+
+
+def reml_cases():
+    """The REML kernel's launches at the benchmark cells' shapes: the dense
+    scan's (n = 10,000, blocks of 2,048) and the 2-bit cohort's (a top
+    space of 16,384 of n = 50,000 with the complement, blocks of 4,096),
+    c = 3, in each mode of the search: the decade sweep's d1 over 11
+    lambdas, a bisection step, a Newton step, the masked likelihood, the
+    Wald step.  Yields (label, packed, lambda, keywords, need, step,
+    valid, grid size)."""
+    import torch
+
+    from pygemma_tpu_torch.core.grams import (
+        GramComplement, grams_per_snp_lambda_fused_packed,
+        grams_shared_multi_packed)
+    from pygemma_tpu_torch.core.solver import Bisect, Newton
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, n, n_total, B in (("dense", N_FULL, N_FULL, BLOCK),
+                                ("implicit", PK_LARGE, 50_000, 4_096)):
+        lam, ev, pairs, sh, v = kernel_inputs(n, B, C_FULL, 1, gen)
+        comp = None
+        if n_total > n:
+            s = sh.shape[1]
+            E = torch.randn(64, s + B, device="cuda", generator=gen)
+            R = E.T @ E
+            comp = GramComplement(torch.tensor(EPS_LARGE, device="cuda"),
+                                  n_total - n, R[:s, :s].contiguous(),
+                                  R[s:, :s].contiguous(),
+                                  torch.diagonal(R)[s:].contiguous())
+        kw = dict(n=n_total, q=sh.shape[1], permute=True, restricted=True,
+                  comp=comp)
+
+        def packed(kmax, logh):
+            return grams_per_snp_lambda_fused_packed(
+                lam, ev, sh, pairs, v, tuple(range(1, kmax + 1)), logh)
+
+        grid = torch.tensor([10.0 ** k for k in range(-5, 6)],
+                            device="cuda")
+        pg = grams_shared_multi_packed(grid, ev, sh, pairs, v, v * v, (1, 2))
+        idx = torch.arange(B, device="cuda")
+        bis = Bisect(lam * 0.5, lam * 3.0,
+                     torch.where(idx % 2 == 0, 1.0, -1.0))
+        newton = Newton(lam * 0.2, lam * 5.0, idx % 7 == 0, 1e-5)
+        yield f"{name}.sweep_d1", pg, grid, kw, "d1", None, None, len(grid)
+        yield f"{name}.bisect", packed(2, False), lam, kw, "d1", bis, None, 0
+        yield (f"{name}.newton", packed(3, False), lam, kw, "newton", newton,
+               None, 0)
+        yield (f"{name}.lik", packed(1, True), lam, kw, "lik", None,
+               idx % 3 != 0, 0)
+        yield f"{name}.wald", packed(1, False), lam, kw, "wald", None, None, 0
+
+
+def _reml_run(fn, need, packed, lam, kw, step, valid):
+    """One call of ``fn`` on copies of lambda and of the step's state:
+    (its output, lambda after it, the step state after it)."""
+    import torch
+
+    lam = lam.clone()
+    if step is not None:
+        step = type(step)(*(x.clone() if torch.is_tensor(x) else x
+                            for x in step))
+    return fn(need, packed, lam, step=step, valid=valid, **kw), lam, step
+
+
+def _reml_close(a, b, scale, what):
+    """``a`` against ``b`` at the gpu tests' tolerance: the same NaN and
+    inf lanes, finite values within 1e-5 of |b| + ``scale``.  Returns
+    (max |a - b| over b's finite lanes, the worst error over its
+    tolerance)."""
+    import torch
+
+    a, b = a.double(), b.double()
+    check(torch.equal(torch.isnan(a), torch.isnan(b)),
+          f"REML kernel: NaN lanes differ ({what})")
+    inf = torch.isinf(b)
+    check(torch.equal(a[inf], b[inf]), f"REML kernel: inf lanes differ "
+                                       f"({what})")
+    ok = torch.isfinite(b)
+    tol = 1e-5 * (b.abs() + (0.0 if scale is None else scale))
+    err = (a - b).abs()
+    err, tol = err[ok], torch.broadcast_to(tol, b.shape)[ok]
+    if err.numel() == 0:
+        return 0.0, 0.0
+    ratio = torch.where(err == 0, 0.0, err / tol)
+    return err.max().item(), ratio.max().item()
+
+
+def _lik_terms(packed, lam, kw):
+    """The size of the likelihood's terms, lane by lane: twice its
+    constant plus |sum log h| (with the complement's n_comp log(lam eps +
+    1)).  The log-likelihood is their difference with (n - q) log(y'P y) / 2
+    and logdet / 2, each of which, given the likelihood, this bounds: at
+    n = 50,000 the terms are ~1e5 and cancel, so float32 rounds the
+    likelihood to ~1e-6 of them, not of itself."""
+    import math
+
+    from pygemma_tpu_torch.core import reml
+
+    n, q = kw["n"], kw["q"]
+    const = (reml.restricted_const(n, q) if kw["restricted"]
+             else reml.ml_const(n))
+    logh = packed.sums.sum_logh.double()
+    comp = kw["comp"]
+    if comp is not None:
+        logh = logh + comp.n_comp * (lam.double() * comp.eps.item()
+                                     + 1.0).log()
+    return 2.0 * math.fabs(const) + logh.abs()
+
+
+def _float64(packed, comp):
+    """``packed`` and ``comp`` in float64: the plain version's yardstick."""
+    from pygemma_tpu_torch.core.grams import GramSums, PackedGrams
+
+    p = PackedGrams(packed.S.double(), packed.vS.double(),
+                    packed.vv.double(),
+                    GramSums(*(x.double() for x in packed.sums)))
+    if comp is not None:
+        comp = comp._replace(eps=comp.eps.double(), R_S=comp.R_S.double(),
+                             R_vS=comp.R_vS.double(),
+                             R_vv=comp.R_vv.double())
+    return p, comp
+
+
+def reml_parity(rk, label, packed, lam, kw, need, step=None, valid=None):
+    """The REML kernel against its plain version on one launch's inputs,
+    held to the gpu tests' rule: every decision equal (the bracket, the
+    stopped lanes, x_ok), values within 1e-5 of |plain| + their scale
+    (d1: n / lambda; d2: n / lambda^2; the Newton iterate: |d1 / d2| (1 +
+    that / |d2|); beta and |z| = sqrt(F): the block's largest; the
+    likelihood: its terms' size, :func:`_lik_terms`, where the likelihood
+    also reports both versions' errors against the plain version in
+    float64).  Returns (max |kernel - plain| over the plain version's
+    finite values, the worst error over its tolerance)."""
+    import torch
+
+    from pygemma_tpu_torch.core import solver
+
+    (ko, kl, ks), (po, pl, ps) = (
+        _reml_run(fn, need, packed, lam, kw, step, valid)
+        for fn in (rk.reml_kernel, solver.evaluate_plain))
+    torch.cuda.synchronize()
+    lam_d = lam.double()
+    s1 = kw["n"] / (lam_d[:, None] if lam.shape != packed.vv.shape[:-1]
+                    else lam_d)
+    res = []
+    if need == "d1" and step is None:
+        res.append(_reml_close(ko, po, s1, f"{label} d1"))
+    elif need == "d1":
+        check(torch.equal(ks.lo, ps.lo) and torch.equal(ks.hi, ps.hi),
+              f"REML kernel: the bracket differs ({label})")
+        res.append(_reml_close(kl, pl, None, f"{label} midpoint"))
+    elif need == "newton":
+        d1, d2 = (x.double() for x in solver.evaluate_plain(
+            "newton", packed, lam, **kw))
+        s2 = s1 / lam_d
+        if step is None:
+            res += [_reml_close(ko[0], po[0], s1, f"{label} d1"),
+                    _reml_close(ko[1], po[1], s2, f"{label} d2")]
+        else:
+            check(torch.equal(ks.done, ps.done),
+                  f"REML kernel: the stopped lanes differ ({label})")
+            res.append(_reml_close(kl, pl, (d1 / d2).abs()
+                                   * (1 + s2 / d2.abs()),
+                                   f"{label} iterate"))
+    elif need == "lik":
+        terms = _lik_terms(packed, lam, kw)
+        res.append(_reml_close(ko, po, terms, f"{label} likelihood"))
+        p64, c64 = _float64(packed, kw["comp"])
+        ref = solver.evaluate_plain("lik", p64, lam.double(),
+                                    **dict(kw, comp=c64), valid=valid)
+        print(f"reml parity {label}: against float64, kernel "
+              f"{_reml_close(ko, ref, terms, 'kernel')[1]:.3f} and plain "
+              f"{_reml_close(po, ref, terms, 'plain')[1]:.3f} of the "
+              f"tolerance", flush=True)
+    else:
+        check(torch.equal(ko[1], po[1]), f"REML kernel: x_ok differs "
+                                         f"({label})")
+        for i, col in enumerate(("beta", "se", "tau", "lambda", "F")):
+            a, b = ko[0][i], po[0][i]
+            if col == "F":
+                a, b = a.sqrt(), b.sqrt()
+            scale = (torch.nan_to_num(b.abs(), nan=0.0).max().item()
+                     if col in ("beta", "F") else None)
+            res.append(_reml_close(a, b, scale, f"{label} {col}"))
+    err = max(r[0] for r in res)
+    ratio = max(r[1] for r in res)
+    check(ratio <= 1.0, f"REML kernel disagrees with its plain version at "
+                        f"{label}: {ratio:.2f}x the tolerance")
+    return err, ratio
+
+
+def phase_reml_parity():
+    """The REML kernel against its plain version in every mode at the
+    cells' shapes (:func:`reml_cases`); returns the largest |kernel -
+    plain| and the worst error over its tolerance."""
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    worst, worst_ratio = 0.0, 0.0
+    for label, p, lm, kw, need, step, valid, _ in reml_cases():
+        err, ratio = reml_parity(rk, label, p, lm, kw, need, step, valid)
+        print(f"reml parity {label}: max|kernel-plain|={err:.3e}, "
+              f"{ratio:.3f} of the tolerance", flush=True)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    return worst, worst_ratio
+
+
+def reml_time_row(rk, packed, lam, kw, need, step=None, valid=None,
+                  grid=0):
+    """The REML kernel's device and wall times for one launch, beside the
+    plain PyTorch algebra's wall time on the same packed Grams (what an
+    evaluation cost before the kernel) and the card's bound.  A step's
+    calls each clone lambda first (both sides)."""
+    from pygemma_tpu_torch.core import solver
+    from pygemma_tpu_torch.ops import gram_kernel as gk
+
+    st = {}
+
+    def call(fn, state):
+        fn(need, packed, lam.clone() if step else lam, step=state,
+           valid=valid, **kw)
+
+    if step is not None:
+        st = {fn: type(step)(*(x.clone() if hasattr(x, "clone") else x
+                               for x in step))
+              for fn in (rk.reml_kernel, solver.evaluate_plain)}
+    kern = lambda: call(rk.reml_kernel, st.get(rk.reml_kernel))  # noqa: E731
+    plain = lambda: call(solver.evaluate_plain,  # noqa: E731
+                         st.get(solver.evaluate_plain))
+    ms = device_ms(kern, ("reml_kernel",))
+    wall_ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain)
+    lanes = int(packed.vv.shape[:-1].numel())
+    flops, nbytes = rk.flops_and_bytes(
+        kw["q"] + 1, lanes, need, step is not None, kw["comp"] is not None,
+        grid)
+    b_ms, b_by = gk.bound_ms(flops, nbytes)
+    return dict(ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, lanes=lanes)
+
+
+def phase_reml_times():
+    """The REML kernel's times at the cells' shapes (:func:`reml_cases`).
+    Prints one line a row and returns the rows."""
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    rows = {}
+    for label, p, lm, kw, need, step, valid, g in reml_cases():
+        row = reml_time_row(rk, p, lm, kw, need, step, valid, g)
+        rows[label] = row
+        print(f"reml {label} lanes={row['lanes']}: kernel "
+              f"{row['ms'] * 1e3:.2f} us device ({row['wall_ms'] * 1e3:.2f}"
+              f" us wall), plain {row['plain_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})",
+              flush=True)
+    return rows
 
 
 def table_close_dlogp(got, ref, col, limit):
@@ -484,6 +777,20 @@ def lowrank_close(got, ref, what):
     return d
 
 
+@contextlib.contextmanager
+def plain_reml():
+    """The REML kernel's plain version on the card: the λ search and the
+    Wald step through ``solver.evaluate_plain``, as on the CPU."""
+    from pygemma_tpu_torch.core import assoc, solver
+
+    saved = solver.algebra, assoc.algebra
+    solver.algebra = assoc.algebra = lambda x: solver.evaluate_plain
+    try:
+        yield
+    finally:
+        solver.algebra, assoc.algebra = saved
+
+
 def held_to_float64(on, off, f64, cols):
     """The kernel-on table against the kernel-off table, both held to a
     float64 scan of the same block: per SNP, |on - f64| may exceed the plain
@@ -545,13 +852,14 @@ def phase_large(pt, gk, solver, tmp):
     # cold: the basis and the scan in one driver call (the path's run)
     api._EIGEN_DEV_CACHE.clear()
     torch.cuda.reset_peak_memory_stats()
-    gk.fused_grams.launches = 0
+    reset_launches(gk, solver)
     solver.host_value.count = 0
     t0 = time.time()
     df = pt.pygemma(y, X, W, lrk, config=cfg,
                     run_dir=os.path.join(tmp, "cold"))
     e2e_s = time.time() - t0
     launches = gk.fused_grams.launches
+    reml, evals = reml_launches(solver, n_blocks, "large")
     syncs = solver.host_value.count
     peak = torch.cuda.max_memory_allocated()
     check(launches > 0, "the kernel was never launched on the implicit "
@@ -570,7 +878,8 @@ def phase_large(pt, gk, solver, tmp):
     print(f"large: top basis {top_s:.2f} s ({by_stage}), "
           f"end-to-end {e2e_s:.2f} s, warm scan {scan_s:.2f} s = "
           f"{P_LARGE / scan_s:.0f} SNPs/s; kernel launches {launches} "
-          f"({launches / n_blocks:.1f} per block of {BLOCK_LARGE}); host "
+          f"({launches / n_blocks:.1f} per block of {BLOCK_LARGE}); REML "
+          f"kernel launches {reml} ({evals} evaluations); host "
           f"syncs {syncs}; peak device memory {peak / 2**30:.2f} GiB; "
           f"packed bytes per block {block_bytes}; finite p_wald "
           f"{finite:.4f}", flush=True)
@@ -648,10 +957,12 @@ def phase_large(pt, gk, solver, tmp):
     print(f"large: .bed coding of {N_LARGE} x {BED_SNPS} streams "
           "bit-identical to the dosage coding", flush=True)
 
-    # kernel off on the first block, both against the same block in
-    # float64; then the explicit full basis
-    off = pt.pygemma(y, first, W, lrk,
-                     config=cfg.replace(use_fused_kernel=False))
+    # both kernels off on the first block (K1's and the REML kernel's plain
+    # versions), both against the same block in float64; then the explicit
+    # full basis
+    with plain_reml():
+        off = pt.pygemma(y, first, W, lrk,
+                         config=cfg.replace(use_fused_kernel=False))
     f64 = pt.pygemma(y, X[:, :BLOCK_LARGE].astype(np.float64), W, lrk,
                      config=cfg.replace(dtype="float64"))
     d_off = table_close_dlogp(off, head, "p_wald", OFF_DLOGP)
@@ -671,7 +982,8 @@ def phase_large(pt, gk, solver, tmp):
           f"implicit max|dlog10 p|={d_exp:.3e}", flush=True)
     api._EIGEN_DEV_CACHE.clear()
     torch.cuda.empty_cache()
-    record = dict(launches=launches, host_syncs=syncs, top_basis_s=top_s,
+    record = dict(launches=launches, reml_launches=reml, evaluations=evals,
+                  host_syncs=syncs, top_basis_s=top_s,
                   top_basis_stages=stages, e2e_s=e2e_s, scan_s=scan_s,
                   snps_per_s=P_LARGE / scan_s, cached_scan_s=cached_s,
                   pipelined_e2e_s=pipelined_s,
@@ -735,13 +1047,14 @@ def phase_multi(pt, gk, solver, ctx, tmp):
     warm_s = time.time() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gk.fused_grams.launches = 0
+    reset_launches(gk, solver)
     solver.host_value.count = 0
     api._rotate_top.count = 0
     t0 = time.time()
     dfk = pt.pygemma(Yk, X, W, lrk, config=cfg)  # the path's run
     multi_s = time.time() - t0
     launches = gk.fused_grams.launches
+    reml, evals = reml_launches(solver, n_blocks * K_PHENOS, "multi")
     rotations = api._rotate_top.count
     syncs = solver.host_value.count
     peak = torch.cuda.max_memory_allocated()
@@ -755,7 +1068,8 @@ def phase_multi(pt, gk, solver, ctx, tmp):
     print(f"multi: k={K_PHENOS} batched scan of p={P_LARGE} {multi_s:.2f} s "
           f"= {rate:.0f} SNP-tests/s (warm-up block and basis {warm_s:.2f} "
           f"s); kernel launches {launches} ({launches / n_blocks:.1f} per "
-          f"block); U_top'xb GEMMs {rotations} ({rotations / n_blocks:.1f} "
+          f"block); REML kernel launches {reml} ({evals} evaluations); "
+          f"U_top'xb GEMMs {rotations} ({rotations / n_blocks:.1f} "
           f"per block); host syncs {syncs}; peak device memory "
           f"{peak / 2**30:.2f} GiB; finite p_wald {finite:.4f}", flush=True)
 
@@ -784,7 +1098,8 @@ def phase_multi(pt, gk, solver, ctx, tmp):
           f"max|dlog10 p|={d1:.3e}, beta {b1:.3e} of |beta|+se", flush=True)
     api._EIGEN_DEV_CACHE.clear()
     torch.cuda.empty_cache()
-    return dict(k=K_PHENOS, launches=launches, rotations=rotations,
+    return dict(k=K_PHENOS, launches=launches, reml_launches=reml,
+                evaluations=evals, rotations=rotations,
                 rotations_per_block=rotations / n_blocks,
                 looped_rotations_per_block=looped_rot, host_syncs=syncs,
                 scan_s=multi_s, warm_s=warm_s, snp_tests_per_s=rate,
@@ -846,7 +1161,8 @@ def write_plink_cohort(tmp: str, seed: int = 2028):
 
 def run_cli(args, label):
     """``python -m pygemma_tpu_torch run ...`` as a subprocess from the
-    checkout; returns (seconds, stage -> seconds, kernel launches)."""
+    checkout; returns (seconds, stage -> seconds, K1's launches, the REML
+    kernel's launches)."""
     import re
 
     t0 = time.time()
@@ -862,9 +1178,10 @@ def run_cli(args, label):
         if m:
             stages[m.group(1)] = stages.get(m.group(1), 0.0) + float(
                 m.group(2))
-    m = re.search(r"fused Gram kernel launches (\d+)", proc.stderr)
+    m = re.search(r"fused Gram kernel launches (\d+); REML kernel launches "
+                  r"(\d+)", proc.stderr)
     check(m is not None, f"CLI {label}: no launch count in its log")
-    return wall, stages, int(m.group(1))
+    return wall, stages, int(m.group(1)), int(m.group(2))
 
 
 def startup_seconds():
@@ -943,22 +1260,27 @@ def phase_cli(tmp):
     out1 = os.path.join(tmp, "assoc.tsv")
     common = ["--bfile", prefix, "--pheno", pheno, "--covar", covar,
               "--add-intercept", "--gk", "1"]
-    wall1, st1, launches1 = run_cli(common + ["--out", out1], "run 1")
+    wall1, st1, launches1, reml1 = run_cli(common + ["--out", out1],
+                                           "run 1")
     s1 = stage_summary(st1)
     print(f"cli: run 1 (k={K_PHENOS}, TSV): {wall1:.2f} s wall; " + ", ".join(
         f"{k} {v:.2f} s" for k, v in s1.items())
-        + f"; kernel launches {launches1}", flush=True)
+        + f"; kernel launches {launches1}, REML kernel launches {reml1}",
+        flush=True)
     out2 = os.path.join(tmp, "pheno0.assoc.txt")
-    wall2, st2, launches2 = run_cli(
+    wall2, st2, launches2, reml2 = run_cli(
         common + ["--pheno-col", "0", "--tests", "wald,lrt,score",
                   "--out-format", "gemma", "--out", out2], "run 2")
     s2 = stage_summary(st2)
     print(f"cli: run 2 (pheno 0, wald+lrt+score, GEMMA): {wall2:.2f} s wall; "
           + ", ".join(f"{k} {v:.2f} s" for k, v in s2.items())
-          + f"; kernel launches {launches2}", flush=True)
+          + f"; kernel launches {launches2}, REML kernel launches {reml2}",
+          flush=True)
     check(launches1 > 0 and launches2 > 0,
           f"the CLI runs launched the kernel {launches1} and {launches2} "
           "times")
+    check(reml1 > 0 and reml2 > 0,
+          f"the CLI runs launched the REML kernel {reml1} and {reml2} times")
 
     t1 = pd.read_csv(out1, sep="\t")
     check(len(t1) == K_PHENOS * P_FULL, f"run 1 has {len(t1)} rows")
@@ -987,6 +1309,7 @@ def phase_cli(tmp):
           f"{d:.3e}; beta max {b:.3e} of |beta|+se, {over} of {P_FULL} SNPs "
           f"beyond {OFF_BETA_RTOL}", flush=True)
     return dict(launches_run1=launches1, launches_run2=launches2,
+                reml_launches_run1=reml1, reml_launches_run2=reml2,
                 startup_wall_s=start_wall, startup_in_process_s=start_in,
                 wall_run1_s=wall1, wall_run2_s=wall2, stages_run1=s1,
                 stages_run2=s2, finite_p=finite, grm_err=grm_err,
@@ -1010,6 +1333,7 @@ def mesh_rank_large(tmp: str, prefix: str) -> None:
 
     sys.path.insert(0, str(ROOT))
     import pygemma_tpu_torch as pt
+    from pygemma_tpu_torch.core import solver
     from pygemma_tpu_torch.core.lowrank import LowRankKinship
     from pygemma_tpu_torch.io.packed import PackedMatrix
     from pygemma_tpu_torch.ops import gram_kernel as gk
@@ -1034,17 +1358,20 @@ def mesh_rank_large(tmp: str, prefix: str) -> None:
         r"^(.+) - ([0-9.]+) s$", log.getvalue(), re.M)}
     torch.cuda.synchronize()
     dist.barrier()
-    gk.fused_grams.launches = 0
+    reset_launches(gk, solver)
     t0 = time.time()
     df = pt.pygemma(y, X, W, lrk, config=cfg, mesh=mesh)  # the path's run
     torch.cuda.synchronize()
     scan_s = time.time() - t0
     launches = gk.fused_grams.launches
+    reml, evals = reml_launches(solver, None, f"mesh rank {rank}")
     record = dict(rank=rank, backend=dist.get_backend(),
                   device=str(torch.cuda.current_device()),
                   setup_s=setup_s, first_call_s=first_s,
                   stages=stages, scan_s=scan_s, launches=launches,
                   launches_all_ranks=all_sum(launches),
+                  reml_launches_all_ranks=all_sum(reml),
+                  evaluations_all_ranks=all_sum(evals),
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     np.save(os.path.join(tmp, f"mesh_rank{rank}.npy"),
             df.to_numpy(dtype=np.float64))
@@ -1085,6 +1412,7 @@ def phase_mesh_large(ctx, large, prefix, tmp):
     check(d < MESH_DLOGP, f"mesh vs phase 5: max |d log10 p| {d:.3e}")
     launches = recs[0]["launches_all_ranks"]
     check(launches > 0, "the kernel was never launched on the mesh path")
+    reml = recs[0]["reml_launches_all_ranks"]
     check(all(rec["backend"] == "gloo" for rec in recs),
           f"backends {[rec['backend'] for rec in recs]}, not gloo")
     st = recs[0]["stages"]
@@ -1105,7 +1433,8 @@ def phase_mesh_large(ctx, large, prefix, tmp):
           f"above 1e-3; tables identical across ranks; {wall:.1f} s wall "
           "with the processes' start", flush=True)
     return dict(ranks=MESH_RANKS, backend="gloo", launches=launches,
-                basis_s=basis_s, broadcast_s=bcast_s, scan_s=scan_s,
+                reml_launches=reml,
+                evaluations=recs[0]["evaluations_all_ranks"], basis_s=basis_s, broadcast_s=bcast_s, scan_s=scan_s,
                 scan_s_by_rank=[rec["scan_s"] for rec in recs],
                 first_call_s=[rec["first_call_s"] for rec in recs],
                 phase5_scan_s=large["scan_s"],
@@ -1119,11 +1448,12 @@ def phase_mesh_cli(tmp, files):
     import pandas as pd
 
     out = os.path.join(tmp, "pheno0_mesh.assoc.txt")
-    wall, stages, launches = run_cli(
+    wall, stages, launches, reml = run_cli(
         files["common"] + ["--pheno-col", "0", "--tests", "wald,lrt,score",
                            "--out-format", "gemma", "--out", out,
                            "--mesh", str(MESH_RANKS)], "--mesh 2")
     check(launches > 0, "the --mesh CLI run never launched the kernel")
+    check(reml > 0, "the --mesh CLI run never launched the REML kernel")
     got, ref = pd.read_csv(out, sep="\t"), pd.read_csv(files["run2"], sep="\t")
     check(list(got.columns) == list(ref.columns) and len(got) == len(ref),
           "the --mesh table's shape or columns differ from run 2's")
@@ -1137,7 +1467,7 @@ def phase_mesh_cli(tmp, files):
           + f"; kernel launches {launches} over the ranks; against run 2 "
           + ", ".join(f"{k} max|dlog10 p|={v:.3e}" for k, v in d.items()),
           flush=True)
-    return dict(launches=launches, wall_s=wall, stages=s,
+    return dict(launches=launches, reml_launches=reml, wall_s=wall, stages=s,
                 run2_wall_s=files["wall_run2_s"], vs_run2_dlogp=d)
 
 
@@ -1287,7 +1617,7 @@ def phase_dc_large(pt, gk, large, ctx, tmp):
     import torch
 
     from pygemma_tpu_torch import api
-    from pygemma_tpu_torch.core import lowrank
+    from pygemma_tpu_torch.core import lowrank, solver
 
     lrk, cfg = ctx["lrk"], ctx["cfg"]
     real = lowrank.auto_eigendecompose
@@ -1342,11 +1672,12 @@ def phase_dc_large(pt, gk, large, ctx, tmp):
     t0 = time.time()
     pt.pygemma(ctx["y"], ctx["X"], ctx["W"], lrk, config=dc_cfg)
     cold_s = time.time() - t0
-    gk.fused_grams.launches = 0
+    reset_launches(gk, solver)
     t0 = time.time()
     df = pt.pygemma(ctx["y"], ctx["X"], ctx["W"], lrk, config=dc_cfg)
     scan_s = time.time() - t0
     launches = gk.fused_grams.launches
+    reml, evals = reml_launches(solver, -(-P_LARGE // BLOCK_LARGE), "dc")
     check(launches > 0, "the kernel was never launched on the dc path")
     d = lowrank_close(df, ctx["table"], "dc basis against cuSOLVER's")
     api._EIGEN_DEV_CACHE.clear()
@@ -1360,7 +1691,7 @@ def phase_dc_large(pt, gk, large, ctx, tmp):
                 phase5_gram_eigh_s=large["top_basis_stages"]["gram_eigh_s"],
                 eigvalsh_s=cus_s, split=split, peak_gib=peak / 2**30,
                 **errs, cold_e2e_s=cold_s, scan_s=scan_s, launches=launches,
-                vs_phase5_dlogp=d)
+                reml_launches=reml, evaluations=evals, vs_phase5_dlogp=d)
 
 
 def phase_dc_dense(K, eigh_s):
@@ -1527,6 +1858,7 @@ def shard_rank(tmp: str) -> None:
 
     sys.path.insert(0, str(ROOT))
     import pygemma_tpu_torch as pt
+    from pygemma_tpu_torch.core import solver
     from pygemma_tpu_torch.ops import gram_kernel as gk
     from pygemma_tpu_torch.parallel.dist import sharded_eigh_fn
     from pygemma_tpu_torch.parallel.distributed import all_sum
@@ -1556,16 +1888,19 @@ def shard_rank(tmp: str) -> None:
     cfg = pt.GwasConfig(snp_block=BLOCK)
     pt.api._EIGEN_DEV_CACHE.clear()
     log = io.StringIO()
-    gk.fused_grams.launches = 0
+    reset_launches(gk, solver)
     with contextlib.redirect_stderr(log):
         df, lines, e2e_s, peak, sent = measured(
             lambda: pt.pygemma(y, X, W, K, config=cfg, mesh=mesh, verbose=1))
     launches = gk.fused_grams.launches
+    reml, evals = reml_launches(solver, None, f"sharded rank {rank}")
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"^(.+) - ([0-9.]+) s$", log.getvalue(), re.M)}
     rec["dense"] = dict(e2e_s=e2e_s, peak_gib=peak, sent_gib=sent,
                         launches=launches, stages=stages,
-                        launches_all_ranks=all_sum(launches))
+                        launches_all_ranks=all_sum(launches),
+                        reml_launches_all_ranks=all_sum(reml),
+                        evaluations_all_ranks=all_sum(evals))
     np.save(os.path.join(tmp, f"shard_rank{rank}.npy"),
             df.to_numpy(dtype=np.float64))
     if rank == 0:
@@ -1667,6 +2002,8 @@ def phase_sharded_eigh(full, full_table, dc_large, dc_dense, tmp):
           f"{by_rank('gram', 'sent_gib')}; (ev, U) bytes identical; "
           f"{wall:.1f} s wall with the processes' start", flush=True)
     return dict(ranks=SHARD_RANKS, backend="gloo", launches=launches,
+                reml_launches=dense["reml_launches_all_ranks"],
+                evaluations=dense["evaluations_all_ranks"],
                 dense=dict(eigh_s=eigh_s, phase6_eigh_s=full["eigh_s"],
                            phase12b_dc_s=dc_dense["seconds"],
                            vs_phase6_dlogp=d,
@@ -1696,12 +2033,13 @@ def phase_full(pt, gk, solver):
 
     cfg = pt.GwasConfig(snp_block=BLOCK)
     torch.cuda.reset_peak_memory_stats()
-    gk.fused_grams.launches = 0
+    reset_launches(gk, solver)
     solver.host_value.count = 0
     t0 = time.time()
     df = pt.pygemma(y, X, W, K, config=cfg)  # the main path
     e2e_s = time.time() - t0
     launches = gk.fused_grams.launches
+    reml, evals = reml_launches(solver, -(-P_FULL // BLOCK), "full")
     syncs = solver.host_value.count
     peak = torch.cuda.max_memory_allocated()
     check(launches > 0, "the kernel was never launched on the main path")
@@ -1718,8 +2056,8 @@ def phase_full(pt, gk, solver):
     print(f"full: eigh {eigh_s:.2f} s (torch.linalg.eigh n={N_FULL} fp32), "
           f"end-to-end {e2e_s:.2f} s, warm scan {scan_s:.2f} s = "
           f"{P_FULL / scan_s:.0f} SNPs/s; kernel launches {launches} "
-          f"({launches / n_blocks:.1f} per block of {BLOCK}); host syncs "
-          f"{syncs}; peak device memory {peak / 2**30:.2f} GiB; finite "
+          f"({launches / n_blocks:.1f} per block of {BLOCK}); REML kernel "
+          f"launches {reml} ({evals} evaluations); host syncs {syncs}; peak device memory {peak / 2**30:.2f} GiB; finite "
           f"p_wald {finite:.4f}", flush=True)
 
     # the first block again, kernel off: the kernel against its plain
@@ -1742,7 +2080,8 @@ def phase_full(pt, gk, solver):
     prof = profile_blocks(pt, gk, y, X[:, :PROFILE_BLOCKS * BLOCK], W, K, cfg,
                           BLOCK)
     print(json.dumps({"profile": prof}), flush=True)
-    return dict(launches=launches, host_syncs=syncs, eigh_s=eigh_s,
+    return dict(launches=launches, reml_launches=reml, evaluations=evals,
+                host_syncs=syncs, eigh_s=eigh_s,
                 e2e_s=e2e_s, scan_s=scan_s, snps_per_s=P_FULL / scan_s,
                 peak_gib=peak / 2**30, finite_p=finite), dc, df
 
@@ -1832,8 +2171,9 @@ def main() -> int:
           f"{bed_native.SOURCE.relative_to(ROOT)} in {time.time() - t0:.1f} s",
           flush=True)
 
-    # 3. kernel parity
+    # 3. kernel parity: K1, then the REML kernel in every mode
     worst = phase_kernel_parity(gk)
+    reml_worst, reml_ratio = phase_reml_parity()
 
     # 4. small end to end
     phase_small(pt, oracle)
@@ -1874,8 +2214,9 @@ def main() -> int:
         pt.api._EIGEN_DEV_CACHE.clear()
         del ctx
 
-    # 7. kernel times
+    # 7. kernel times: K1, then the REML kernel
     rows, implicit_row = phase_kernel_times(gk)
+    reml_rows = phase_reml_times()
 
     # 11. (c) a one-rank NCCL mesh in this process
     mesh_nccl = phase_mesh_nccl(pt, oracle)
@@ -1886,6 +2227,26 @@ def main() -> int:
 
     # 8. records
     main_row = rows["kmax3"]
+    paths = {  # the record's name of each main path -> its phase's record
+        f"dense n={N_FULL} p={P_FULL}": full,
+        f"implicit n={N_LARGE} p={P_LARGE} p_k={PK_LARGE}": large,
+        f"implicit batched k={K_PHENOS} n={N_LARGE} p={P_LARGE} "
+        f"p_k={PK_LARGE}": multi,
+        f"mesh {MESH_RANKS} ranks implicit n={N_LARGE} p={P_LARGE} "
+        f"p_k={PK_LARGE} (summed over ranks)": mesh,
+        f"mesh {MESH_RANKS} ranks cli dense pheno 0 wald+lrt+score "
+        f"n={N_FULL} p={P_FULL} (summed over ranks)": mesh_cli,
+        f"implicit on the eigh_dc basis n={N_LARGE} p={P_LARGE} "
+        f"p_k={PK_LARGE}": dc_large,
+        f"sample mesh {SHARD_RANKS} ranks dense n={N_FULL} p={P_FULL} "
+        f"on the sample-sharded eigh_dc basis (summed over ranks)": sharded}
+    cli_paths = {f"cli dense k={K_PHENOS} n={N_FULL} p={P_FULL}": "run1",
+                 f"cli dense pheno 0 wald+lrt+score n={N_FULL} p={P_FULL}":
+                     "run2"}
+    reml_by_path = {k: v["reml_launches"] for k, v in paths.items()}
+    reml_by_path.update({k: cli[f"reml_launches_{r}"]
+                         for k, r in cli_paths.items()})
+    reml_main = reml_rows["dense.newton"]
     record = {"kernels": [{
         "name": "fused_grams (k1_partials_kernel + k1_reduce_kernel)",
         "route": "cuda",
@@ -1930,6 +2291,28 @@ def main() -> int:
         "implicit_shape": dict(
             implicit_row,
             shape=f"n={PK_LARGE} B={BLOCK_LARGE} c={C_LARGE} R=1 kmax=3"),
+    }, {
+        "name": "reml_kernel",
+        "route": "cuda",
+        "source": "pygemma_tpu_torch/csrc/reml_kernel.cu",
+        "replaces": None,  # the plain PyTorch algebra, no TPU kernel
+        "launches": sum(reml_by_path.values()),
+        "launches_by_path": reml_by_path,
+        # the evaluations of each path that counts them (not the CLI's):
+        # its launches less these are its Wald steps (blocks x phenotypes)
+        "evaluations_by_path": {k: v["evaluations"]
+                                for k, v in paths.items()
+                                if "evaluations" in v},
+        "max_abs_err": reml_worst,
+        "max_err_over_tol": reml_ratio,
+        "ms": reml_main["ms"],
+        "plain_ms": reml_main["plain_ms"],
+        "bound_ms": reml_main["bound_ms"],
+        "bound_by": reml_main["bound_by"],
+        "library_ms": None,
+        "wall_ms": reml_main["wall_ms"],
+        "shape": f"Newton step, n={N_FULL} B={BLOCK} c={C_FULL}",
+        "by_case": reml_rows,
     }]}
     print(json.dumps({"large_implicit": large}), flush=True)
     print(json.dumps({"full_width": full}), flush=True)

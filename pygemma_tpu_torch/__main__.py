@@ -15,8 +15,8 @@ reads the inputs; rank 0 logs and writes the output.
 
 With ``--verbose 1`` (the default) every stage ends with a line
 ``<stage> - <seconds> s`` on stderr, and the last line on stderr reports the
-rows written, lambda_GC and the launches of the fused Gram kernel (summed
-over the ranks under ``--mesh``).
+rows written, lambda_GC and the launches of the fused Gram kernel and of
+the REML kernel (summed over the ranks under ``--mesh``).
 """
 
 from __future__ import annotations
@@ -100,6 +100,7 @@ def cmd_run(args):
     from .device import resolve_device
     from .io import bimbam, rawbin
     from .ops.gram_kernel import fused_grams
+    from .ops.reml_kernel import reml_kernel
     from .utils.logging import StageLogger
 
     resolve_device(args.device)
@@ -209,15 +210,18 @@ def cmd_run(args):
     cfg = GwasConfig(tests=tuple(args.tests.split(",")),
                      grid=args.grid, snp_block=args.snp_block)
     launches = fused_grams.launches
+    reml_launches = reml_kernel.launches
     df = pygemma(Y, X, W, K, snps=names, eigen=eigen, verbose=args.verbose,
                  config=cfg, run_dir=args.run_dir, mesh=mesh,
                  device=args.device)
     launches = fused_grams.launches - launches
+    reml_launches = reml_kernel.launches - reml_launches
     if mesh is not None:
         from .parallel.distributed import all_sum
         from .parallel.mesh import is_writer
 
         launches = all_sum(launches)
+        reml_launches = all_sum(reml_launches)
         if not is_writer(mesh):
             return
     with log.stage(f"write {args.out}"):
@@ -235,7 +239,8 @@ def cmd_run(args):
     line = (f"wrote {args.out} ({len(df)} rows) in "
             f"{time.time() - t_start:.1f}s; "
             f"lambda_GC={pp.genomic_control_lambda(df['p_wald']):.4f}; "
-            f"fused Gram kernel launches {launches}")
+            f"fused Gram kernel launches {launches}; "
+            f"REML kernel launches {reml_launches}")
     if getattr(args, "summary", None) is not None:
         args.summary.put(line)
     else:

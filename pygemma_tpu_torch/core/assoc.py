@@ -9,7 +9,6 @@ falls out of the batched algebra plus the explicit NaN-row masks below.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -20,14 +19,14 @@ from ..config import GwasConfig, MIN_VAL
 from . import reml
 from .grams import (
     GramComplement,
-    grams_per_snp_lambda,
-    grams_per_snp_lambda_fused,
+    grams_per_snp_lambda_fused_packed,
+    grams_per_snp_lambda_packed,
     grams_shared_lambda,
     pair_products,
     pdot,
     permute_x_before_y,
 )
-from .solver import LambdaProblem, solve_lambda
+from .solver import LambdaProblem, algebra, solve_lambda
 
 
 def _use_fused(cfg: GwasConfig, X: torch.Tensor) -> bool:
@@ -206,42 +205,19 @@ def assoc_block(
                          fused, comp)
     lam_star, _ = solve_lambda(prob, cfg)
 
-    # Final statistics at lambda*: one k=1 Gram build.
+    # Final statistics at lambda*: one k=1 Gram build and the Wald step
+    # (reml.wald), in the REML kernel on the card.
     if fused:
-        grams, sums = grams_per_snp_lambda_fused(
-            lam_star, ev, shared, pairs, X, (1,), want_logh=False, comp=comp)
+        packed = grams_per_snp_lambda_fused_packed(lam_star, ev, shared,
+                                                   pairs, X, (1,))
     else:
-        grams, sums = grams_per_snp_lambda(
-            lam_star, ev, shared, pairs, X, X2, (1,), want_logh=False,
-            comp=comp)
-    A1 = grams[0]
-    if not de:
-        A1 = permute_x_before_y(A1, c)
-    # Predictor-of-interest quadratic forms against the null design W
-    # (reference calc_beta_vg_ve_restricted_overload, pyx:1514-1537).
-    xPx, xPy, _ = reml.predictor_terms(A1, c)
-    alt = reml.reml_scalars(A1, None, None, sums, c + 1)
-    yPxy = torch.clamp_min(alt.yPy, MIN_VAL)
-
+        packed = grams_per_snp_lambda_packed(lam_star, ev, shared, pairs, X,
+                                             X2, (1,))
+    rows, x_ok = algebra(X)("wald", packed, lam_star, n=n, q=c + 1,
+                            permute=not de, comp=comp)
+    beta, se_beta, tau, lam_star, F_wald = rows
     df = float(n - c - 1)
-    # Degenerate predictors (x collinear with W, e.g. a constant SNP) have
-    # x'P_c x == 0 up to roundoff -- possibly exactly zero or negative on
-    # the implicit path, where beta = xPy/xPx would emit inf and p = 0.
-    # The reference's contract for a singular design is a FULL NaN row
-    # (every column, lmm/lmm.py:484-493): gate every per-SNP output on the
-    # same mask.
-    x_ok = xPx > MIN_VAL
     nan = float("nan")
-    beta = torch.where(x_ok, xPy / torch.clamp_min(xPx, MIN_VAL), nan)
-    se_beta = torch.where(
-        x_ok,
-        torch.sqrt(yPxy) / (torch.sqrt(torch.clamp_min(xPx, MIN_VAL))
-                            * math.sqrt(df)),
-        nan,
-    )
-    tau = torch.where(x_ok, df / yPxy, nan)
-    lam_star = torch.where(x_ok, lam_star, nan)
-    F_wald = torch.square(beta / se_beta)
     p_wald = f_sf(F_wald, df) if pvalues else None
 
     p_lrt = logl_H1 = lam_ml = None

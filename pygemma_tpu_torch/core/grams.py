@@ -12,16 +12,23 @@ SNPs at once is a handful of large matmuls, after which all likelihood
 evaluations are O(B * t^3) batched small-matrix algebra
 (:mod:`pygemma_tpu_torch.core.reml`).
 
-* :func:`grams_shared_lambda` / :func:`grams_shared_multi` -- one lambda (or
-  one lambda grid) for every SNP in the block: plain GEMMs.
-* :func:`grams_per_snp_lambda` -- each SNP carries its own lambda
+* :func:`grams_shared_lambda_packed` / :func:`grams_shared_multi_packed`
+  -- one lambda (or one lambda grid) for every SNP in the block: plain
+  GEMMs.
+* :func:`grams_per_snp_lambda_packed` -- each SNP carries its own lambda
   (bisection / Newton refinement).  Builds (B, n) weight matrices; the
   hand-written kernel in :mod:`pygemma_tpu_torch.ops.gram_kernel` computes
-  the same sums without them (:func:`grams_per_snp_lambda_fused`).
+  the same sums without them (:func:`grams_per_snp_lambda_fused_packed`).
 
-Each builder takes an optional :class:`GramComplement`: the implicit
-low-rank kinship's complement eigenspace, folded in after the top-space
-sums.
+The builders stop before assembly (:class:`PackedGrams`: the shared block
+as its triu vector, the per-SNP column's cross and self terms, the sums);
+the REML kernel (:mod:`pygemma_tpu_torch.ops.reml_kernel`) reads those in
+place, and :func:`assemble` makes the Gram tensors the PyTorch algebra
+reads.  :func:`_complement_correct` folds in a :class:`GramComplement`:
+the implicit low-rank kinship's complement eigenspace, added after the
+top-space sums.  :func:`grams_shared_lambda` and
+:func:`grams_per_snp_lambda` do both, for the score test and K1's plain
+version.
 
 Every matmul here runs in full float32 or float64: the entry points refuse
 to run with TF32 enabled (device.py::check_matmul_precision).
@@ -81,6 +88,43 @@ class GramComplement(NamedTuple):
     R_S: torch.Tensor  # (s, s) residual Gram of the shared columns
     R_vS: torch.Tensor  # (B, s) residual cross terms of the per-SNP column
     R_vv: torch.Tensor  # (B,)   residual self terms
+
+
+class PackedGrams(NamedTuple):
+    """The Gram tensors of one build before assembly, one row per power k
+    in ascending order (the builder's ``ks``).  Leading axes are the lanes
+    and broadcast against each other: a shared-lambda build's ``S`` has no
+    SNP axis.
+
+    ``S`` (..., K, m): the shared columns' block as its triu vector
+    (:func:`pair_products` order); ``vS`` (..., K, s): the per-SNP column
+    against the shared ones; ``vv`` (..., K): the per-SNP column's self
+    term; ``sums``: the eigenvalue-weight sums.
+    """
+
+    S: torch.Tensor
+    vS: torch.Tensor
+    vv: torch.Tensor
+    sums: GramSums
+
+
+def assemble(p: PackedGrams) -> Tuple[torch.Tensor, ...]:
+    """The (..., s+1, s+1) Gram of each row of ``p``, per-SNP column last."""
+    lanes, s = p.vS.shape[:-2], p.vS.shape[-1]
+    return tuple(
+        _assemble_nd(unpack_sym(p.S[..., i, :], s).expand(lanes + (s, s)),
+                     p.vS[..., i, :], p.vv[..., i])
+        for i in range(p.vv.shape[-1]))
+
+
+def _grams(p: PackedGrams, ks, comp, lam, mode: str, want_logh: bool):
+    """Assemble ``p`` and fold in the complement (``mode`` as in
+    :func:`_complement_correct`)."""
+    grams = assemble(p)
+    if comp is not None:
+        return _complement_correct(grams, p.sums, ks, comp, lam, mode,
+                                   want_logh)
+    return grams, p.sums
 
 
 def _complement_wc(lam, comp: GramComplement):
@@ -149,8 +193,7 @@ def _complement_correct(grams, sums: GramSums, ks, comp: GramComplement,
 
     ``mode`` names the lambda layout: "scalar" (lam (), A (B,t,t), sums
     scalar), "multi" (lam (G,), A (G,B,t,t), sums (G,1)), "per_snp"
-    (lam (B,), A (B,t,t), sums (B,)), "slots" (lam (B,R), A (B,R,t,t),
-    sums (B,R)).
+    (lam (B,), A (B,t,t), sums (B,)).
     """
     B, s = comp.R_vS.shape
     B_block = grams[0].shape[1 if mode == "multi" else 0]
@@ -160,12 +203,10 @@ def _complement_correct(grams, sums: GramSums, ks, comp: GramComplement,
                          f"a block of {B_block}")
     wc, logc = _complement_wc(lam, comp)
     R = _assemble(comp.R_S, comp.R_vS, comp.R_vv, B, s)  # (B, t, t)
-    if mode == "slots":
-        R = R[:, None]
     # unit axes that broadcast a lambda-shaped weight against a Gram and
     # against a sum
-    g_axes, s_axes = {"scalar": (0, 0), "multi": (3, 1), "per_snp": (2, 0),
-                      "slots": (2, 0)}[mode]
+    g_axes, s_axes = {"scalar": (0, 0), "multi": (3, 1),
+                      "per_snp": (2, 0)}[mode]
 
     def unit(w, k):
         return w.reshape(w.shape + (1,) * k)
@@ -184,7 +225,7 @@ def _complement_correct(grams, sums: GramSums, ks, comp: GramComplement,
     return grams, sums
 
 
-def grams_shared_lambda(
+def grams_shared_lambda_packed(
     lam: torch.Tensor,  # scalar
     ev: torch.Tensor,  # (n,)
     shared: torch.Tensor,  # (n, s)
@@ -193,38 +234,44 @@ def grams_shared_lambda(
     v2: torch.Tensor,  # (n, B) = v * v
     ks: Sequence[int],
     want_logh: bool = False,
-    comp: Optional[GramComplement] = None,
-) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
-    """Gram tensors with one lambda for the whole SNP block.
+) -> PackedGrams:
+    """Packed parts with one lambda for the whole SNP block: S (K, m),
+    vS (B, K, s), vv (B, K), scalar sums.
 
     Cost: one (B,n)x(n,s) GEMM and one (B,n)x(n,) matvec per k; the shared
     s x s block is an O(n m) reduction shared by every SNP.
     """
-    n, s = shared.shape
-    B = v.shape[1]
     h = lam * ev + 1.0
     d = 1.0 / h
-    grams = []
+    S, vS, vv = [], [], []
     dk = d
     for k in range(1, max(ks) + 1):
         if k in ks:
-            S_k = unpack_sym(pdot(pairs.T, dk), s)  # (s, s)
-            vS_k = pdot(v.T, dk[:, None] * shared)  # (B, s)
-            vv_k = pdot(v2.T, dk)  # (B,)
-            grams.append(_assemble(S_k, vS_k, vv_k, B, s))
+            S.append(pdot(pairs.T, dk))  # (m,)
+            vS.append(pdot(v.T, dk[:, None] * shared))  # (B, s)
+            vv.append(pdot(v2.T, dk))  # (B,)
         dk = dk * d
     sums = GramSums(
         sum_d=torch.sum(d),
         sum_d2=torch.sum(d * d),
         sum_logh=torch.sum(torch.log(h)) if want_logh else d.new_zeros(()),
     )
-    if comp is not None:
-        return _complement_correct(tuple(grams), sums, ks, comp, lam,
-                                   "scalar", want_logh)
-    return tuple(grams), sums
+    return PackedGrams(torch.stack(S), torch.stack(vS, dim=1),
+                       torch.stack(vv, dim=1), sums)
 
 
-def grams_shared_multi(
+def grams_shared_lambda(lam, ev, shared, pairs, v, v2, ks: Sequence[int],
+                        want_logh: bool = False,
+                        comp: Optional[GramComplement] = None,
+                        ) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
+    """Gram tensors with one lambda for the whole SNP block:
+    :func:`grams_shared_lambda_packed`, assembled to (B, s+1, s+1)."""
+    p = grams_shared_lambda_packed(lam, ev, shared, pairs, v, v2, ks,
+                                   want_logh)
+    return _grams(p, ks, comp, lam, "scalar", want_logh)
+
+
+def grams_shared_multi_packed(
     lams: torch.Tensor,  # (G,) grid of lambdas shared across the SNP block
     ev: torch.Tensor,  # (n,)
     shared: torch.Tensor,  # (n, s)
@@ -233,9 +280,9 @@ def grams_shared_multi(
     v2: torch.Tensor,  # (n, B)
     ks: Sequence[int],
     want_logh: bool = False,
-    comp: Optional[GramComplement] = None,
-) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
-    """Gram tensors for a whole lambda *grid* at once: (G, B, s+1, s+1).
+) -> PackedGrams:
+    """Packed parts for a whole lambda *grid* at once: S (G, 1, K, m),
+    vS (G, B, K, s), vv (G, B, K), sums (G, 1).
 
     Batching every (lambda, k) weight column into one wide GEMM reads the
     genotype block exactly once.
@@ -258,17 +305,8 @@ def grams_shared_multi(
     # (n, G*K*s) weighted copies of the shared columns -> single GEMM with v
     C = (D[:, :, :, None] * shared[None, None, :, :]).permute(2, 0, 1, 3)
     C = C.reshape(n, G * Kn * s)
-    vS = pdot(v.T, C).reshape(B, G, Kn, s)  # (B, G, K, s)
+    vS = pdot(v.T, C).reshape(B, G, Kn, s)
     vv = pdot(v2.T, D.reshape(G * Kn, n).T).reshape(B, G, Kn)
-
-    grams = []
-    for ki in range(Kn):
-        S_k = unpack_sym(S[:, ki], s)  # (G, s, s)
-        grams.append(_assemble_nd(
-            S_k[:, None].expand(G, B, s, s),
-            vS[:, :, ki].permute(1, 0, 2),
-            vv[:, :, ki].T,
-        ))
     sums = GramSums(
         sum_d=torch.sum(d, dim=1)[:, None],  # (G, 1) broadcasts over B
         sum_d2=torch.sum(d * d, dim=1)[:, None],
@@ -276,13 +314,11 @@ def grams_shared_multi(
         if want_logh
         else d.new_zeros((G, 1)),
     )
-    if comp is not None:
-        return _complement_correct(tuple(grams), sums, ks, comp, lams,
-                                   "multi", want_logh)
-    return tuple(grams), sums
+    return PackedGrams(S[:, None], vS.permute(1, 0, 2, 3),
+                       vv.permute(1, 0, 2), sums)
 
 
-def grams_per_snp_lambda(
+def grams_per_snp_lambda_packed(
     lam: torch.Tensor,  # (B,)
     ev: torch.Tensor,  # (n,)
     shared: torch.Tensor,  # (n, s)
@@ -291,26 +327,24 @@ def grams_per_snp_lambda(
     v2: torch.Tensor,  # (n, B)
     ks: Sequence[int],
     want_logh: bool = False,
-    comp: Optional[GramComplement] = None,
-) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
-    """Gram tensors with an independent lambda per SNP.
+) -> PackedGrams:
+    """Packed parts with an independent lambda per SNP: S (B, K, m),
+    vS (B, K, s), vv (B, K), sums (B,).
 
     Cost per k: a (B,n)x(n,m) GEMM for the shared pairs, a (B,n) elementwise
     product plus a (B,n)x(n,s) GEMM for the per-SNP column terms.
     """
-    n, s = shared.shape
     B = v.shape[1]
     h = lam[:, None] * ev[None, :] + 1.0  # (B, n)
     d = 1.0 / h
-    grams = []
+    S, vS, vv = [], [], []
     dk = d
     for k in range(1, max(ks) + 1):
         if k in ks:
-            S_k = unpack_sym(pdot(dk, pairs), s)  # (B, s, s)
+            S.append(pdot(dk, pairs))  # (B, m)
             zk = v * dk.T  # (n, B)
-            vS_k = pdot(zk.T, shared)  # (B, s)
-            vv_k = torch.sum(v2 * dk.T, dim=0)  # (B,)
-            grams.append(_assemble(S_k, vS_k, vv_k, B, s))
+            vS.append(pdot(zk.T, shared))  # (B, s)
+            vv.append(torch.sum(v2 * dk.T, dim=0))  # (B,)
         dk = dk * d
     sums = GramSums(
         sum_d=torch.sum(d, dim=1),
@@ -319,13 +353,25 @@ def grams_per_snp_lambda(
         if want_logh
         else d.new_zeros((B,)),
     )
-    if comp is not None:
-        return _complement_correct(tuple(grams), sums, ks, comp, lam,
-                                   "per_snp", want_logh)
-    return tuple(grams), sums
+    return PackedGrams(torch.stack(S, dim=1), torch.stack(vS, dim=1),
+                       torch.stack(vv, dim=1), sums)
 
 
-def grams_per_snp_lambda_fused(
+def grams_per_snp_lambda(lam, ev, shared, pairs, v, v2, ks: Sequence[int],
+                         want_logh: bool = False,
+                         comp: Optional[GramComplement] = None,
+                         ) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
+    """Gram tensors with an independent lambda per SNP:
+    :func:`grams_per_snp_lambda_packed`, assembled to (B, s+1, s+1).
+    Builds (B, n) weight matrices; the hand-written kernel in
+    :mod:`pygemma_tpu_torch.ops.gram_kernel` computes the same sums without
+    them (:func:`grams_per_snp_lambda_fused_packed`)."""
+    p = grams_per_snp_lambda_packed(lam, ev, shared, pairs, v, v2, ks,
+                                    want_logh)
+    return _grams(p, ks, comp, lam, "per_snp", want_logh)
+
+
+def grams_per_snp_lambda_fused_packed(
     lam: torch.Tensor,  # (B,) or (B, R) -- R lambda slots per SNP
     ev: torch.Tensor,  # (n,)
     shared: torch.Tensor,  # (n, s)
@@ -333,65 +379,30 @@ def grams_per_snp_lambda_fused(
     v: torch.Tensor,  # (n, B) per-SNP columns (natural genotype layout)
     ks: Sequence[int],
     want_logh: bool = False,
-    comp: Optional[GramComplement] = None,
-) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
-    """Kernel-fused variant of :func:`grams_per_snp_lambda`.
+) -> PackedGrams:
+    """Kernel-fused variant of :func:`grams_per_snp_lambda_packed`: views of
+    K1's output rows, S (B[, R], K, m), vS (B[, R], K, s), vv (B[, R], K),
+    sums (B[, R]).
 
     Same numerical contract; on a CUDA tensor the (n, B) weight matrices
     never reach device memory (see pygemma_tpu_torch/ops/gram_kernel.py).
     With a 2-D ``lam`` all R slots share one pass over the genotype
-    columns; Gram tensors come back with a slot axis: (B, R, s+1, s+1).
+    columns.
     """
     from ..ops.gram_kernel import fused_grams
 
-    s = shared.shape[1]
     kmax = max(ks)
     S, vS, vv, sum_d, sum_d2, sum_logh = fused_grams(
         lam, ev, pairs, shared, v, kmax, want_logh
     )
     # ascending-k order, matching the non-fused builders (which iterate
-    # range(1, kmax+1)) -- an unsorted caller ks never reorders the tuple
-    grams = []
-    for k in sorted(ks):
-        S_k = unpack_sym(S[..., k - 1, :], s)
-        grams.append(_assemble_nd(S_k, vS[..., k - 1, :], vv[..., k - 1]))
-    sums = GramSums(sum_d=sum_d, sum_d2=sum_d2, sum_logh=sum_logh)
-    if comp is not None:
-        # the complement correction stays outside the kernel: O(s^2) work
-        # per (SNP, slot) on the kernel's outputs
-        return _complement_correct(
-            tuple(grams), sums, ks, comp, lam,
-            "per_snp" if lam.ndim == 1 else "slots", want_logh)
-    return tuple(grams), sums
-
-
-def grams_per_snp_lambda_slots(
-    lam: torch.Tensor,  # (B, R)
-    ev: torch.Tensor,
-    shared: torch.Tensor,
-    pairs: torch.Tensor,
-    v: torch.Tensor,
-    v2: torch.Tensor,
-    ks: Sequence[int],
-    want_logh: bool = False,
-    comp: Optional[GramComplement] = None,
-) -> Tuple[Tuple[torch.Tensor, ...], GramSums]:
-    """Unfused multi-slot lambda: per-slot builds stacked on axis 1."""
-    parts = [
-        grams_per_snp_lambda(lam[:, r], ev, shared, pairs, v, v2, ks,
-                             want_logh=want_logh, comp=comp)
-        for r in range(lam.shape[1])
-    ]
-    grams = tuple(
-        torch.stack([p[0][i] for p in parts], dim=1)
-        for i in range(len(parts[0][0]))
-    )
-    sums = GramSums(
-        sum_d=torch.stack([p[1].sum_d for p in parts], dim=1),
-        sum_d2=torch.stack([p[1].sum_d2 for p in parts], dim=1),
-        sum_logh=torch.stack([p[1].sum_logh for p in parts], dim=1),
-    )
-    return grams, sums
+    # range(1, kmax+1)) -- an unsorted caller ks never reorders the rows
+    rows = tuple(k - 1 for k in sorted(ks))
+    if rows != tuple(range(kmax)):
+        idx = index_tensor(rows, str(S.device))
+        S, vS, vv = (S.index_select(-2, idx), vS.index_select(-2, idx),
+                     vv.index_select(-1, idx))
+    return PackedGrams(S, vS, vv, GramSums(sum_d, sum_d2, sum_logh))
 
 
 def permute_x_before_y(A: torch.Tensor, c: int) -> torch.Tensor:

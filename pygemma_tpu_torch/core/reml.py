@@ -193,11 +193,53 @@ def predictor_terms(A1: torch.Tensor, c: int):
     return xPx, xPy, yPy
 
 
+def wald(A1: torch.Tensor, sums: GramSums, lam, n: int, c: int):
+    """Wald statistics at lambda* from the [W, x, y] Gram of k = 1
+    (reference calc_beta_vg_ve_restricted_overload, pyx:1514-1537): a
+    (5, ...) stack of beta, se, tau, lambda and F, and the mask of
+    predictors not collinear with W."""
+    xPx, xPy, _ = predictor_terms(A1, c)
+    alt = reml_scalars(A1, None, None, sums, c + 1)
+    yPxy = torch.clamp_min(alt.yPy, MIN_VAL)
+    df = float(n - c - 1)
+    # Degenerate predictors (x collinear with W, e.g. a constant SNP) have
+    # x'P_c x == 0 up to roundoff -- possibly exactly zero or negative on
+    # the implicit path, where beta = xPy/xPx would emit inf and p = 0.
+    # The reference's contract for a singular design is a FULL NaN row
+    # (every column, lmm/lmm.py:484-493): gate every per-SNP output on the
+    # same mask.
+    x_ok = xPx > MIN_VAL
+    nan = float("nan")
+    beta = torch.where(x_ok, xPy / torch.clamp_min(xPx, MIN_VAL), nan)
+    se_beta = torch.where(
+        x_ok,
+        torch.sqrt(yPxy) / (torch.sqrt(torch.clamp_min(xPx, MIN_VAL))
+                            * math.sqrt(df)),
+        nan,
+    )
+    tau = torch.where(x_ok, df / yPxy, nan)
+    lam = torch.where(x_ok, lam, nan)
+    F_wald = torch.square(beta / se_beta)
+    return torch.stack([beta, se_beta, tau, lam, F_wald]), x_ok
+
+
 # ---------------------------------------------------------------------------
 # Restricted (REML) likelihood family -- "overload" forms.
 # q below is the number of columns of the design the projection removes
 # (the reference passes its full [W|x] width; pygemma_model.pyx:1631-1649).
 # ---------------------------------------------------------------------------
+
+
+def restricted_const(n, q) -> float:
+    """The lambda-free constant of ell_R (pygemma_model.pyx:1813-1830)."""
+    nf = float(n - q)
+    return 0.5 * nf * math.log(0.5 * nf / math.pi) - 0.5 * nf
+
+
+def ml_const(n) -> float:
+    """The lambda-free constant of the ML ell (pygemma_model.pyx:1542-1560)."""
+    nf = float(n)
+    return 0.5 * nf * math.log(nf / (2.0 * math.pi)) - 0.5 * nf
 
 
 def loglik_restricted(lam, n, q, yPy, sum_logh, logdet_G1):
@@ -209,9 +251,8 @@ def loglik_restricted(lam, n, q, yPy, sum_logh, logdet_G1):
     negative likelihood instead of NaN-poisoning the argmax.
     """
     nf = float(n - q)
-    const = 0.5 * nf * math.log(0.5 * nf / math.pi) - 0.5 * nf
     return (
-        const
+        restricted_const(n, q)
         - 0.5 * sum_logh
         - 0.5 * logdet_G1
         - 0.5 * nf * torch.log(torch.clamp_min(yPy, MIN_VAL))
@@ -251,8 +292,7 @@ def d2_restricted(lam, n, q, yPy, yPPy, yPPPy, trP, trPP):
 def loglik_ml(lam, n, yPy, sum_logh):
     """ell(lambda), profiled ML log-likelihood; pygemma_model.pyx:1542-1560."""
     nf = float(n)
-    const = 0.5 * nf * math.log(nf / (2.0 * math.pi)) - 0.5 * nf
-    return (const - 0.5 * sum_logh
+    return (ml_const(n) - 0.5 * sum_logh
             - 0.5 * nf * torch.log(torch.clamp_min(yPy, MIN_VAL)))
 
 

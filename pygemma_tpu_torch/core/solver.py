@@ -24,8 +24,12 @@ same semantics run as masked updates over the whole SNP block:
 The loops are host loops.  They wait for the device at two places only:
 the number of root batches (once per solve) and Newton's early exit (once
 per iteration); :func:`host_value` counts both, and ``evaluate.count``
-counts the evaluations.  With tracing on (utils/profiling.py) a solve is a
-``lambda`` span and each wait a ``sync`` span.
+counts the evaluations.  Each evaluation is one Gram build and one call of
+the REML kernel (ops/reml_kernel.py), which also takes the bisection's or
+Newton's step, on tensors on the card, or of its plain PyTorch version,
+:func:`evaluate_plain`, on CPU tensors (:func:`algebra`).  With tracing on
+(utils/profiling.py) a solve is a ``lambda`` span, with its evaluations and
+those the kernel ran (``kernel_evals``), and each wait a ``sync`` span.
 """
 
 from __future__ import annotations
@@ -36,15 +40,18 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import GwasConfig
+from ..ops.reml_kernel import KMAX, reml_kernel
 from ..utils import profiling
 from . import reml
 from .grams import (
     GramComplement,
-    grams_per_snp_lambda,
-    grams_per_snp_lambda_fused,
-    grams_per_snp_lambda_slots,
-    grams_shared_lambda,
-    grams_shared_multi,
+    PackedGrams,
+    _complement_correct,
+    assemble,
+    grams_per_snp_lambda_fused_packed,
+    grams_per_snp_lambda_packed,
+    grams_shared_lambda_packed,
+    grams_shared_multi_packed,
     permute_x_before_y,
 )
 
@@ -92,70 +99,6 @@ class LambdaProblem(NamedTuple):
     comp: Optional[GramComplement] = None
 
 
-_KS = {"d1": (1, 2), "newton": (1, 2, 3), "lik": (1,)}
-
-
-def evaluate(problem: LambdaProblem, lam, need: str, shared_lam):
-    """Evaluate d1 / (d1, d2) / loglik at ``lam`` for every SNP in the block.
-
-    ``shared_lam=True`` takes a scalar lambda (GEMM fast path);
-    ``shared_lam="multi"`` takes a (G,) lambda grid and returns (G, B)
-    outputs from one wide GEMM; otherwise ``lam`` is (B,) or (B, R).
-    ``evaluate.count`` counts the calls.
-    """
-    evaluate.count += 1
-    ks = _KS[need]
-    kw = dict(want_logh=need == "lik", comp=problem.comp)
-    args = (problem.ev, problem.shared, problem.pairs, problem.v)
-    if shared_lam == "multi":
-        grams, sums = grams_shared_multi(lam, *args, problem.v2, ks, **kw)
-        lam = lam[:, None]  # broadcast (G, 1) against (G, B) scalars
-    elif shared_lam:
-        grams, sums = grams_shared_lambda(lam, *args, problem.v2, ks, **kw)
-    elif problem.fused:
-        grams, sums = grams_per_snp_lambda_fused(lam, *args, ks, **kw)
-    elif lam.ndim == 2:
-        grams, sums = grams_per_snp_lambda_slots(lam, *args, problem.v2, ks,
-                                                 **kw)
-    else:
-        grams, sums = grams_per_snp_lambda(lam, *args, problem.v2, ks, **kw)
-    if problem.permute:
-        c = problem.q - 1
-        grams = tuple(permute_x_before_y(A, c) for A in grams)
-    A1 = grams[0]
-    A2 = grams[1] if len(grams) > 1 else None
-    A3 = grams[2] if len(grams) > 2 else None
-    scal = reml.reml_scalars(
-        A1, A2, A3, sums, problem.q, need_third=(need == "newton")
-    )
-    n, q = problem.n, problem.q
-    if need == "lik":
-        if problem.restricted:
-            return reml.loglik_restricted(
-                lam, n, q, scal.yPy, sums.sum_logh, scal.logdet_G1
-            )
-        return reml.loglik_ml(lam, n, scal.yPy, sums.sum_logh)
-    if need == "d1":
-        if problem.restricted:
-            return reml.d1_restricted(lam, n, q, scal.yPy, scal.yPPy, scal.trP)
-        return reml.d1_ml(lam, n, scal.yPy, scal.yPPy, sums.sum_d)
-    # need == "newton"
-    if problem.restricted:
-        d1 = reml.d1_restricted(lam, n, q, scal.yPy, scal.yPPy, scal.trP)
-        d2 = reml.d2_restricted(
-            lam, n, q, scal.yPy, scal.yPPy, scal.yPPPy, scal.trP, scal.trPP
-        )
-    else:
-        d1 = reml.d1_ml(lam, n, scal.yPy, scal.yPPy, sums.sum_d)
-        d2 = reml.d2_ml(
-            lam, n, scal.yPy, scal.yPPy, scal.yPPPy, sums.sum_d, sums.sum_d2
-        )
-    return d1, d2
-
-
-evaluate.count = 0
-
-
 def _sign(x):
     """Sign with sign(0) = +1, mirroring copysignf(1.0, x) (pyx:174)."""
     return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
@@ -166,6 +109,149 @@ def _nan_sign(x):
     builds): Newton's three-way sign product must be NaN for a NaN lane so
     the lane stops on the NaN guard, not on the sign test."""
     return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+class Bisect(NamedTuple):
+    """A geometric bisection step's state, (B,) each, updated in place: the
+    bracket and the sign of d1 at its low end."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+    flo: torch.Tensor
+
+
+class Newton(NamedTuple):
+    """A safeguarded Newton step's state: the bracket a step may not leave
+    (B,), the stopped lanes (B,) bool (updated in place) and the
+    relative-step tolerance."""
+
+    lo0: torch.Tensor
+    hi0: torch.Tensor
+    done: torch.Tensor
+    rtol: float
+
+
+def bisect_step(d1, lam, step: Bisect) -> None:
+    """Masked geometric bisection (replaces brentq, pyx:176-182), in place:
+    the root is in [mid, hi] when d1 at the midpoint ``lam`` keeps the low
+    end's sign; ``lam`` becomes the next midpoint, which halves the
+    bracket's log-width."""
+    go_right = _sign(d1) == step.flo
+    lo = torch.where(go_right, lam, step.lo)
+    hi = torch.where(go_right, step.hi, lam)
+    step.lo.copy_(lo)
+    step.hi.copy_(hi)
+    lam.copy_(torch.sqrt(lo * hi))
+
+
+def newton_step(d1, d2, lam, step: Newton) -> None:
+    """Masked safeguarded Newton (pyx:1349-1416), in place on ``lam`` and
+    ``step.done``; a stopped lane never moves again."""
+    ratio = d1 / d2
+    # pyx:1392 -- stop without updating when the three-way sign product is
+    # <= 0 (covers d1==0, d2==0; NaN falls through to the NaN guard exactly
+    # as in the reference).
+    bad_sign = (_nan_sign(ratio) * _nan_sign(d1) * _nan_sign(d2)) <= 0
+    cand = lam - ratio
+    bad_num = torch.isnan(cand) | torch.isinf(cand)
+    # pyx:1398-1404 -- an out-of-bracket step BREAKS WITHOUT updating (the
+    # reference's clamp assigns a dead local)
+    oob = (cand < step.lo0) | (cand > step.hi0)
+    rel = torch.abs(cand - lam) / torch.abs(lam)
+    do_upd = (~step.done) & (~bad_sign) & (~bad_num) & (~oob)
+    lam.copy_(torch.where(do_upd, cand, lam))
+    step.done.logical_or_(bad_sign | bad_num | oob | (rel < step.rtol))
+
+
+def evaluate_plain(need: str, packed: PackedGrams, lam, *, n: int, q: int,
+                   permute: bool, restricted: bool = True,
+                   comp: Optional[GramComplement] = None, step=None,
+                   valid=None):
+    """The REML kernel's plain PyTorch version, same contract
+    (ops/reml_kernel.py): the Grams assembled and corrected for the
+    complement, ``core/reml.py``'s algebra, then :func:`bisect_step`,
+    :func:`newton_step`, the likelihood's -inf for the lanes ``valid``
+    drops, or the Wald statistics (:func:`reml.wald`)."""
+    grid = lam.ndim == 1 and packed.vv.ndim == 3  # (G,) lambdas, (G, B) lanes
+    grams, sums = assemble(packed), packed.sums
+    if comp is not None:
+        layout = ("scalar" if lam.ndim == 0 else "multi" if grid
+                  else "per_snp")
+        grams, sums = _complement_correct(
+            grams, sums, range(1, len(grams) + 1), comp, lam, layout,
+            need == "lik")
+    if permute:
+        grams = tuple(permute_x_before_y(A, q - 1) for A in grams)
+    if need == "wald":
+        return reml.wald(grams[0], sums, lam, n, q - 1)
+    if grid:
+        lam = lam[:, None]  # broadcast (G, 1) against (G, B) scalars
+    A2 = grams[1] if need != "lik" else None
+    A3 = grams[2] if need == "newton" else None
+    scal = reml.reml_scalars(grams[0], A2, A3, sums, q,
+                             need_third=need == "newton")
+    if need == "lik":
+        if restricted:
+            lik = reml.loglik_restricted(lam, n, q, scal.yPy, sums.sum_logh,
+                                         scal.logdet_G1)
+        else:
+            lik = reml.loglik_ml(lam, n, scal.yPy, sums.sum_logh)
+        return lik if valid is None else torch.where(valid, lik, -torch.inf)
+    if restricted:
+        d1 = reml.d1_restricted(lam, n, q, scal.yPy, scal.yPPy, scal.trP)
+    else:
+        d1 = reml.d1_ml(lam, n, scal.yPy, scal.yPPy, sums.sum_d)
+    if need == "d1":
+        return d1 if step is None else bisect_step(d1, lam, step)
+    if restricted:
+        d2 = reml.d2_restricted(lam, n, q, scal.yPy, scal.yPPy, scal.yPPPy,
+                                scal.trP, scal.trPP)
+    else:
+        d2 = reml.d2_ml(lam, n, scal.yPy, scal.yPPy, scal.yPPPy, sums.sum_d,
+                        sums.sum_d2)
+    return (d1, d2) if step is None else newton_step(d1, d2, lam, step)
+
+
+def algebra(x: torch.Tensor):
+    """What evaluates packed Grams next to ``x``: the REML kernel on the
+    card, :func:`evaluate_plain` on the CPU."""
+    return reml_kernel if x.is_cuda else evaluate_plain
+
+
+def evaluate(problem: LambdaProblem, lam, need: str, shared_lam, step=None,
+             valid=None):
+    """Evaluate d1 / (d1, d2) / loglik at ``lam`` for every SNP in the block.
+
+    ``shared_lam=True`` takes a scalar lambda (GEMM fast path);
+    ``shared_lam="multi"`` takes a (G,) lambda grid and returns (G, B)
+    outputs from one wide GEMM; otherwise ``lam`` is (B,).  With ``step``
+    (:class:`Bisect` after "d1", :class:`Newton` after "newton") the
+    search's step is taken in place instead and None returned; ``valid``
+    sets the likelihood of the other lanes to -inf.  ``evaluate.count``
+    counts the calls.
+    """
+    evaluate.count += 1
+    ks = tuple(range(1, KMAX[need] + 1))
+    want_logh = need == "lik"
+    args = (problem.ev, problem.shared, problem.pairs, problem.v)
+    if shared_lam == "multi":
+        packed = grams_shared_multi_packed(lam, *args, problem.v2, ks,
+                                           want_logh)
+    elif shared_lam:
+        packed = grams_shared_lambda_packed(lam, *args, problem.v2, ks,
+                                            want_logh)
+    elif problem.fused:
+        packed = grams_per_snp_lambda_fused_packed(lam, *args, ks, want_logh)
+    else:
+        packed = grams_per_snp_lambda_packed(lam, *args, problem.v2, ks,
+                                             want_logh)
+    return algebra(problem.v)(
+        need, packed, lam, n=problem.n, q=problem.q, permute=problem.permute,
+        restricted=problem.restricted, comp=problem.comp, step=step,
+        valid=valid)
+
+
+evaluate.count = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -181,13 +267,14 @@ def _decade_table(lo_pow: float, n_grid: int, dtype: torch.dtype,
 def solve_lambda(problem: LambdaProblem, cfg: GwasConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Return (lambda_star, loglik_star), each (B,).  Traced as a
-    ``lambda`` span with its root batches, Newton iterations and
-    evaluations."""
-    evals = evaluate.count
+    ``lambda`` span with its root batches, Newton iterations, evaluations
+    and the evaluations the REML kernel ran."""
+    evals, launches = evaluate.count, reml_kernel.launches
     with profiling.span("lambda") as sp:
         out, batches, newton = _solve_lambda(problem, cfg)
         sp.set(batches=batches, newton=newton,
-               evals=evaluate.count - evals)
+               evals=evaluate.count - evals,
+               kernel_evals=reml_kernel.launches - launches)
     return out
 
 
@@ -234,50 +321,32 @@ def _solve_lambda(problem: LambdaProblem, cfg: GwasConfig):
     ).expand(2, B)  # (2, B)
 
     # --- stages 3-5: root refinement in compacted batches.  Every (snp,
-    # bracket) root problem is *gathered* into the lanes of a single-slot
-    # (B, 1) problem and ceil(total_roots / B) such batches are walked (none
+    # bracket) root problem is *gathered* into the lanes of a (B,) problem
+    # and ceil(total_roots / B) such batches are walked (none
     # when the block has no roots at all).  Compaction only changes *where*
     # each root is computed, not *what* is computed.
     def refine_body(prob, lo0_r, hi0_r, valid_r, flo):
-        """Bisection + Newton + likelihood for one slot layout (B, r)."""
-        # masked GEOMETRIC bisection (replaces brentq, pyx:176-182): the
-        # geometric midpoint halves the bracket's log-width each step
-        lo, hi = lo0_r, hi0_r
-        for _ in range(cfg.bisect_iters):
-            mid = torch.sqrt(lo * hi)
-            sm = _sign(evaluate(prob, mid, "d1", False))
-            go_right = sm == flo  # root is in [mid, hi]
-            lo, hi = torch.where(go_right, mid, lo), torch.where(go_right, hi, mid)
+        """Bisection + Newton + likelihood for one batch of (B,) root
+        problems."""
+        # masked GEOMETRIC bisection (replaces brentq, pyx:176-182)
+        lo, hi = lo0_r.clone(), hi0_r.clone()
         lam_r = torch.sqrt(lo * hi)
+        for _ in range(cfg.bisect_iters):
+            evaluate(prob, lam_r, "d1", False, step=Bisect(lo, hi, flo))
 
         # masked safeguarded Newton (pyx:1349-1416); updates are masked, so
         # the early exit once every lane has stopped changes nothing
         nonlocal newton
         done = ~valid_r
+        step = Newton(lo0_r, hi0_r, done, cfg.newton_rtol)
         for _ in range(cfg.newton_iters):
             if host_value(torch.all(done)):
                 break
             newton += 1
-            d1, d2 = evaluate(prob, lam_r, "newton", False)
-            ratio = d1 / d2
-            # pyx:1392 -- stop without updating when the three-way sign
-            # product is <= 0 (covers d1==0, d2==0; NaN falls through to the
-            # NaN guard exactly as in the reference).
-            bad_sign = (_nan_sign(ratio) * _nan_sign(d1) * _nan_sign(d2)) <= 0
-            cand = lam_r - ratio
-            bad_num = torch.isnan(cand) | torch.isinf(cand)
-            # pyx:1398-1404 -- an out-of-bracket step BREAKS WITHOUT
-            # updating (the reference's clamp assigns a dead local)
-            oob = (cand < lo0_r) | (cand > hi0_r)
-            rel = torch.abs(cand - lam_r) / torch.abs(lam_r)
-            do_upd = (~done) & (~bad_sign) & (~bad_num) & (~oob)
-            lam_r = torch.where(do_upd, cand, lam_r)
-            done = done | bad_sign | bad_num | oob | (rel < cfg.newton_rtol)
+            evaluate(prob, lam_r, "newton", False, step=step)
 
         # likelihood at the refined roots (pyx:186-188)
-        lik_r = evaluate(prob, lam_r, "lik", False)  # (B, r)
-        lik_r = torch.where(valid_r, lik_r, -torch.inf)
-        return lam_r, lik_r
+        return lam_r, evaluate(prob, lam_r, "lik", False, valid=valid_r)
 
     newton = 0
     # Lane l of a compacted batch works on SNP sel[l] // R, bracket slot
@@ -295,7 +364,7 @@ def _solve_lambda(problem: LambdaProblem, cfg: GwasConfig):
     for k in range(n_batches):
         sel = sorted_idx[k * B:(k + 1) * B]
         snp_idx = sel // R
-        valid_c = flat_valid[sel][:, None]  # (B, 1)
+        valid_c = flat_valid[sel]
         comp_c = None
         if problem.comp is not None:
             # the per-SNP residual terms travel with their lanes
@@ -303,12 +372,10 @@ def _solve_lambda(problem: LambdaProblem, cfg: GwasConfig):
                                            R_vv=problem.comp.R_vv[snp_idx])
         prob_c = problem._replace(v=problem.v[:, snp_idx],
                                   v2=problem.v2[:, snp_idx], comp=comp_c)
-        lam_c, lik_c = refine_body(
-            prob_c, lo0_f[sel][:, None], hi0_f[sel][:, None],
-            valid_c, flo_f[sel][:, None],
-        )
-        lam_f[sel] = torch.where(valid_c[:, 0], lam_c[:, 0], 1.0).to(dtype)
-        lik_f[sel] = lik_c[:, 0].to(dtype)
+        lam_c, lik_c = refine_body(prob_c, lo0_f[sel], hi0_f[sel], valid_c,
+                                   flo_f[sel])
+        lam_f[sel] = torch.where(valid_c, lam_c, 1.0)
+        lik_f[sel] = lik_c
     lam_r = lam_f.reshape(B, R)
     lik_r = lik_f.reshape(B, R)
 

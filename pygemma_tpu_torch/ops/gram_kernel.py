@@ -55,7 +55,7 @@ _MAX_SPAN = 1024
 #: device kernels of one fused_grams call, as a profiler names them
 KERNEL_NAMES = ("k1_partials_kernel", "k1_reduce_kernel")
 
-_lib = None
+_libs = {}  # (source, defines) -> bound library
 
 
 def _nvcc() -> str:
@@ -66,25 +66,27 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       "the kernels of csrc/")
 
 
-def build(verbose: bool = False, defines: Tuple[str, ...] = ()) -> Path:
-    """Compile ``csrc/gram_kernel.cu`` (once per source content and flags)
-    and return the shared library's path.  ``defines`` are macros passed
-    with ``-D``: the measurement switches the source lists, which the
-    wrapper's own library never sets."""
+def build(verbose: bool = False, defines: Tuple[str, ...] = (),
+          source: Path = SOURCE) -> Path:
+    """Compile a kernel source of ``csrc/`` (K1's by default; once per
+    source content and flags) into a shared library and return its path.
+    ``defines`` are macros passed with ``-D``: K1's measurement switches,
+    which the wrapper's own library never sets, or the REML kernel's Gram
+    size."""
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    src = SOURCE.read_bytes()
+    src = source.read_bytes()
     tag = hashlib.blake2b(src + " ".join(flags).encode(),
                           digest_size=8).hexdigest()
-    lib_path = BUILD_DIR / f"libgram_kernel_{tag}.so"
+    lib_path = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *flags, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *flags, "-o", tmp, str(source)]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -119,13 +121,15 @@ def bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def _load() -> ctypes.CDLL:
-    """Build (if needed) and bind the wrapper's kernel library once per
-    process."""
-    global _lib
-    if _lib is None:
-        _lib = bind(build())
-    return _lib
+def _load(source: Path = SOURCE, binder=None,
+          defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (if needed) and bind a kernel library once per process:
+    K1's by default, bound by :func:`bind`; another source with its own
+    ``binder``."""
+    key = (source, defines)
+    if key not in _libs:
+        _libs[key] = (binder or bind)(build(defines=defines, source=source))
+    return _libs[key]
 
 
 @functools.lru_cache(maxsize=None)

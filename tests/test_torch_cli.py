@@ -357,7 +357,8 @@ def test_cli_mesh_and_device(tmp_path, monkeypatch, capfd):
     tcli.main(["run", *common, "--out", out, "--device", "cpu"])
     err = capfd.readouterr().err.strip().splitlines()
     assert err[-1].startswith(f"wrote {out} (21 rows)")
-    assert "fused Gram kernel launches 0" in err[-1]  # CPU: the plain version
+    # CPU: both kernels' plain versions
+    assert "fused Gram kernel launches 0; REML kernel launches 0" in err[-1]
     assert sum(line.startswith("association scan") for line in err) == 1
     jcli.main(["run", *common, "--out", str(tmp_path / "j.tsv"),
                "--verbose", "0"])

@@ -1,11 +1,12 @@
-"""Cases that need a CUDA card: the hand-written kernel against its plain
-version (also at the implicit low-rank path's shape), the pinned-buffer
-streamer for float, 2-bit and int8 genotypes, the device block cache under a
-racing prefill, the scan on the card against the scan on the CPU (one
-phenotype and the batched four), the kinship GEMM, the command line, and
-the multi-GPU path: two ranks sharing the card over gloo, a one-rank NCCL
-mesh, ``--mesh 2``, the kernel on a card that is not the current one, and
-the trace spans' device clock against torch.profiler's.
+"""Cases that need a CUDA card: the hand-written kernels against their plain
+versions (K1 also at the implicit low-rank path's shape; the REML kernel in
+every mode, with planted lanes, its launch count and a whole table), the
+pinned-buffer streamer for float, 2-bit and int8 genotypes, the device block
+cache under a racing prefill, the scan on the card against the scan on the
+CPU (one phenotype and the batched four), the kinship GEMM, the command
+line, and the multi-GPU path: two ranks sharing the card over gloo, a
+one-rank NCCL mesh, ``--mesh 2``, the kernel on a card that is not the
+current one, and the trace spans' device clock against torch.profiler's.
 
 The module imports neither jax nor pygemma_tpu, so on a machine with a card
 it runs without the JAX-configuring conftest:
@@ -26,12 +27,21 @@ import torch
 
 import oracle
 import pygemma_tpu_torch as pt
-from pygemma_tpu_torch.core.grams import pair_products
+from pygemma_tpu_torch.core import solver
+from pygemma_tpu_torch.core.grams import (
+    GramComplement,
+    PackedGrams,
+    grams_per_snp_lambda_fused_packed,
+    grams_per_snp_lambda_packed,
+    grams_shared_multi_packed,
+    pair_products,
+)
 from pygemma_tpu_torch.io import streaming
 from pygemma_tpu_torch.io.packed import PackedMatrix, write_rawbin_2bit
 from pygemma_tpu_torch.io.quantized import MISSING_CODE, QuantizedMatrix
 from pygemma_tpu_torch.io.streaming import SnpBlockStreamer
 from pygemma_tpu_torch.ops import gram_kernel as gk
+from pygemma_tpu_torch.ops import reml_kernel as rk
 from pygemma_tpu_torch.parallel import distributed
 
 pytestmark = pytest.mark.gpu
@@ -388,6 +398,7 @@ sys.path.insert(0, sys.argv[2])
 import oracle
 import pygemma_tpu_torch as pt
 from pygemma_tpu_torch.ops import gram_kernel as gk
+from pygemma_tpu_torch.ops import reml_kernel as rk
 from pygemma_tpu_torch.parallel.distributed import all_sum
 from pygemma_tpu_torch.parallel.mesh import make_mesh
 y, G, W, K = oracle.simulate(n=220, p=40, c=3, seed=5)
@@ -491,3 +502,283 @@ def test_kernel_on_a_card_that_is_not_current(cuda):
     args = _kernel_inputs(4099, 300, 3, 1, torch.device("cuda", 1))
     _check_against_plain(args, 3, True)
     assert torch.cuda.current_device() == 0
+
+
+# --- the REML kernel against its plain version --------------------------------
+#
+# Same packed Grams into both; values agree to 1e-5 of their scale (the
+# kernel contracts multiply-adds into FMAs and sums in its own order, the
+# plain version rounds each operation), decisions (bracket ends, stopped
+# lanes, NaN rows, -inf) exactly.
+
+
+def _reml_inputs(t, device, B=300, seed=0, dtype=np.float32):
+    """(ev, shared, pairs, v, lam, comp) for Grams of size t: t - 1 shared
+    columns, B SNPs, per-SNP lambdas over six decades, and an implicit
+    complement whose residual Grams are those of 64 more samples."""
+    rng = np.random.default_rng(1000 * t + seed)
+    n, s = 700, t - 1
+    ev = np.abs(rng.normal(size=n)) * 10.0 ** rng.uniform(-2, 2, size=n)
+    shared = rng.normal(size=(n, s))
+    X = rng.normal(size=(n, B))
+    lam = 10.0 ** rng.uniform(-3, 3, size=B)
+    Es, Ev = rng.normal(size=(64, s)), rng.normal(size=(64, B))
+    def f(a):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+    sh = f(shared)
+    comp = GramComplement(f(1e-3), 64, f(Es.T @ Es), f(Ev.T @ Es),
+                          f(np.sum(Ev * Ev, axis=0)))
+    return f(ev), sh, pair_products(sh), f(X), f(lam), comp
+
+
+def _reml_both(need, packed, lam, step=None, **kw):
+    """Run the kernel and its plain version on copies of the step state:
+    ((output, state) of the kernel, (output, state) of the plain one)."""
+    res = []
+    before = rk.reml_kernel.launches
+    for fn in (rk.reml_kernel, solver.evaluate_plain):
+        lam_c = lam.clone()
+        st = None if step is None else type(step)(*(
+            x.clone() if torch.is_tensor(x) else x for x in step))
+        out = fn(need, packed, lam_c, step=st, **kw)
+        res.append((out, (lam_c,) + (() if st is None else tuple(
+            x for x in st if torch.is_tensor(x)))))
+    torch.cuda.synchronize()
+    assert rk.reml_kernel.launches == before + 1
+    return res
+
+
+def _agree(a, b, scale=None, what=""):
+    """Same NaN / inf pattern, finite values within 1e-5 of |b| + scale."""
+    a, b = (x.detach().cpu().double().numpy() for x in (a, b))
+    assert a.shape == b.shape, what
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=what)
+    inf = np.isinf(b)
+    np.testing.assert_array_equal(a[inf], b[inf], err_msg=what)
+    ok = np.isfinite(b)
+    tol = (1e-5 * (np.abs(b) + (0.0 if scale is None else scale))
+           * np.ones_like(b))[ok]
+    err = np.abs(a[ok] - b[ok])
+    bad = ~(err <= tol)
+    assert not bad.any(), (f"{what}: {bad.sum()} lanes, worst "
+                           f"{np.max(err[bad] / tol[bad]):.2f}x tol")
+
+
+def _agree_wald(a, b):
+    """beta and |z| = sqrt(F) on the scale of the block's largest (beta and
+    F near zero inherit x'P y's cancellation); se, tau, lambda relative."""
+    for i, name in enumerate(("beta", "se", "tau", "lambda", "F")):
+        x, y = (a[i], b[i]) if i < 4 else (a[i].sqrt(), b[i].sqrt())
+        scale = None
+        if i in (0, 4):
+            scale = np.nanmax(np.abs(y.cpu().numpy()), initial=0.0)
+        _agree(x, y, scale, f"wald {name}")
+
+
+def _packed_k1(ev, sh, pairs, v, lam, kmax, want_logh):
+    """K1's packed Grams, read in place; float64 (which K1 does not take)
+    from the plain per-SNP builder."""
+    ks = tuple(range(1, kmax + 1))
+    if v.dtype == torch.float64:
+        return grams_per_snp_lambda_packed(lam, ev, sh, pairs, v, v * v, ks,
+                                           want_logh)
+    return grams_per_snp_lambda_fused_packed(lam, ev, sh, pairs, v, ks,
+                                             want_logh)
+
+
+def _check_reml_modes(ev, sh, pairs, v, lam, comp, restricted, permute):
+    """Every mode of the kernel against the plain version on K1's packed
+    Grams (read in place) and on a lambda grid's."""
+    n = int(ev.shape[0]) + (comp.n_comp if comp is not None else 0)
+    q = sh.shape[1]
+    kw = dict(n=n, q=q, permute=permute, restricted=restricted, comp=comp)
+    lam_d = lam.double().cpu().numpy()
+    scale1 = n / lam_d  # the size of d1's terms
+    B = v.shape[1]
+    # d1, the bisection step, d1 and d2, the Newton step
+    p2 = _packed_k1(ev, sh, pairs, v, lam, 2, False)
+    (a, _), (b, _) = _reml_both("d1", p2, lam, **kw)
+    _agree(a, b, scale1, "d1")
+    lo, hi = lam * 0.5, lam * 3.0
+    flo = torch.where(torch.arange(B, device=lam.device) % 2 == 0, 1.0,
+                      -1.0).to(lam.dtype)
+    (_, sa), (_, sb) = _reml_both("d1", p2, lam,
+                                  step=solver.Bisect(lo, hi, flo), **kw)
+    _agree(sa[0], sb[0], None, "bisect midpoint")
+    for x, y, name in zip(sa[1:], sb[1:], ("lo", "hi", "flo")):
+        assert torch.equal(x, y), f"bisect {name}"
+    p3 = _packed_k1(ev, sh, pairs, v, lam, 3, False)
+    (a, _), (b, _) = _reml_both("newton", p3, lam, **kw)
+    scale2 = scale1 / lam_d  # d2's terms: at small lambda they cancel
+    _agree(a[0], b[0], scale1, "newton d1")
+    _agree(a[1], b[1], scale2, "newton d2")
+    done = torch.arange(B, device=lam.device) % 7 == 0
+    newton = solver.Newton(lam * 0.2, lam * 5.0, done, 1e-5)
+    (_, sa), (_, sb) = _reml_both("newton", p3, lam, step=newton, **kw)
+    assert torch.equal(sa[3], sb[3]), "newton stops"
+    # the step d1 / d2 carries d2's tolerance
+    d1, d2 = (x.double().cpu().numpy() for x in b)
+    _agree(sa[0], sb[0], np.abs(d1 / d2) * (1 + scale2 / np.abs(d2)),
+           "newton iterate")
+    # the likelihood, with and without a mask, and the Wald statistics
+    p1 = _packed_k1(ev, sh, pairs, v, lam, 1, True)
+    valid = torch.arange(B, device=lam.device) % 3 != 0
+    for mask in (None, valid):
+        (a, _), (b, _) = _reml_both("lik", p1, lam, valid=mask, **kw)
+        _agree(a, b, None, "lik")
+    p1w = _packed_k1(ev, sh, pairs, v, lam, 1, False)
+    (a, _), (b, _) = _reml_both("wald", p1w, lam, **kw)
+    assert torch.equal(a[1], b[1]), "wald x_ok"
+    _agree_wald(a[0], b[0])
+    # a shared lambda grid: (G, B) lanes
+    grid = torch.tensor([10.0 ** k for k in range(-5, 6)], device=lam.device,
+                        dtype=lam.dtype)
+    for need, kmax in (("d1", 2), ("lik", 1)):
+        pg = grams_shared_multi_packed(grid, ev, sh, pairs, v, v * v,
+                                       tuple(range(1, kmax + 1)),
+                                       need == "lik")
+        (a, _), (b, _) = _reml_both(need, pg, grid, **kw)
+        scale = (n / grid.double().cpu().numpy())[:, None] \
+            if need == "d1" else None
+        _agree(a, b, scale, f"grid {need}")
+
+
+def _check_reml_all(ev, sh, pairs, v, lam, comp):
+    for restricted in (True, False):
+        for permute in (True, False):
+            for cmp in (None, comp):
+                _check_reml_modes(ev, sh, pairs, v, lam, cmp, restricted,
+                                  permute)
+
+
+@pytest.mark.parametrize("t", [*range(3, rk.T_MAX + 1), rk.T_MAX + 1, 24])
+def test_reml_kernel_matches_plain(cuda, t):
+    """Every mode, REML and ML, permuted (standard) and not (DE), with and
+    without the implicit complement, for Grams of size 3 to T_MAX held in
+    registers and two wider ones, whose build keeps its loops."""
+    _check_reml_all(*_reml_inputs(t, cuda))
+
+
+@pytest.mark.parametrize("t", [3, 5, rk.T_MAX, rk.T_MAX + 1])
+def test_reml_kernel_matches_plain_float64(cuda, t):
+    """The float64 build, which the port's float64 runs on the card take,
+    in every mode as above."""
+    _check_reml_all(*_reml_inputs(t, cuda, dtype=np.float64))
+
+
+def _planted(packed, lane):
+    """A copy of ``packed`` whose k = 1 Gram has y'y = -1 in ``lane``: the
+    outcome's self term when the design is permuted (standard mode)."""
+    S = packed.S.clone()
+    s = packed.vS.shape[-1]
+    yy = (s - 1) * s - (s - 1) * (s - 2) // 2  # triu index of (s-1, s-1)
+    S[lane, 0, yy] = -1.0
+    return PackedGrams(S, packed.vS, packed.vv, packed.sums)
+
+
+@pytest.mark.parametrize("restricted", [True, False])
+def test_reml_kernel_planted_lanes(cuda, restricted):
+    """Planted lanes take the plain version's decisions.  Lane 0: a zero
+    SNP, x'P x = 0: a full NaN Wald row.  Lane 1: a NaN SNP: NaN d1, Newton
+    stops on the NaN guard.  Lane 2: y'P y < 0 with y'P^2 y > 0 at lambda
+    = 1e4: the clamps give a finite d1 and d2 = +inf (y'P y clamped to
+    MIN_VAL squares to 0), so d1 / d2 = -0 and Newton stops on the sign
+    product, without a step.  Lane 3: a collapsed bracket: the step leaves
+    it and Newton stops without updating."""
+    ev, sh, pairs, v, lam, _ = _reml_inputs(5, cuda, B=64, seed=1)
+    v = v.clone()
+    v[:, 0] = 0.0
+    v[:, 1] = float("nan")
+    lam = lam.clone()
+    lam[2] = 1e4
+    n, q = int(ev.shape[0]), sh.shape[1]
+    kw = dict(n=n, q=q, permute=True, restricted=restricted)
+    B = v.shape[1]
+    p3 = _planted(_packed_k1(ev, sh, pairs, v, lam, 3, False), 2)
+    (a, _), (b, _) = _reml_both("newton", p3, lam, **kw)
+    for x in (a, b):
+        assert torch.isfinite(x[0][2]) and x[1][2] == float("inf")
+    lo0, hi0 = lam * 0.2, lam * 5.0
+    lo0[3] = hi0[3] = lam[3]
+    done = torch.zeros(B, dtype=torch.bool, device=cuda)
+    (_, sa), (_, sb) = _reml_both("newton", p3, lam,
+                                  step=solver.Newton(lo0, hi0, done, 1e-5),
+                                  **kw)
+    assert torch.equal(sa[3], sb[3])
+    _agree(sa[0], sb[0], None, "newton iterate")
+    assert sb[3][1:4].all()
+    assert torch.equal(sa[0][1:4], lam[1:4]) and torch.equal(sb[0][1:4],
+                                                              lam[1:4])
+    p2 = _planted(_packed_k1(ev, sh, pairs, v, lam, 2, False), 2)
+    (a, _), (b, _) = _reml_both("d1", p2, lam, **kw)
+    _agree(a, b, n / lam.double().cpu().numpy(), "d1")
+    assert torch.isnan(a[1]) and torch.isnan(b[1])
+    p1 = _planted(_packed_k1(ev, sh, pairs, v, lam, 1, True), 2)
+    (a, _), (b, _) = _reml_both("lik", p1, lam, **kw)
+    _agree(a, b, None, "lik")
+    (a, _), (b, _) = _reml_both(
+        "wald", _packed_k1(ev, sh, pairs, v, lam, 1, False), lam, **kw)
+    assert torch.equal(a[1], b[1])
+    assert not b[1][0] and not b[1][1] and b[1][2:].all()
+    assert torch.isnan(a[0][:, :2]).all()
+    _agree_wald(a[0], b[0])
+
+
+def test_reml_kernel_launch_counts(data, cuda):
+    """One launch per evaluation of the lambda search plus one Wald launch
+    a block and phenotype, on the one-phenotype and the batched path, for
+    Grams wider than T_MAX too, and in float64.  The ``lambda`` spans'
+    kernel_evals count every evaluation."""
+    from pygemma_tpu_torch.utils import profiling
+
+    y, G, W, K = data
+    cfg = pt.GwasConfig(snp_block=16, tests=("wald", "lrt"))
+    blocks = -(-G.shape[1] // 16)
+    for Y, k in ((y, 1), (_four_phenotypes(y), 4)):
+        evals, launches = solver.evaluate.count, rk.reml_kernel.launches
+        profiling.enable()
+        try:
+            pt.pygemma(Y, G, W, K, config=cfg, device=cuda)
+            spans = profiling.collect()
+        finally:
+            profiling.disable()
+        evals = solver.evaluate.count - evals
+        assert rk.reml_kernel.launches - launches == evals + blocks * k
+        lams = [s_ for s_ in spans if s_.name == "lambda"]
+        assert sum(s_.attrs["kernel_evals"] for s_ in lams) == evals
+    wide = np.c_[W, np.random.default_rng(3).normal(size=(len(y), 14))]
+    assert wide.shape[1] + 1 > rk.T_MAX  # the null fit's Gram too
+    for Wd, c in ((wide, cfg), (W, cfg.replace(dtype="float64"))):
+        evals, launches = solver.evaluate.count, rk.reml_kernel.launches
+        pt.pygemma(y, G, Wd, K, config=c, device=cuda)
+        evals = solver.evaluate.count - evals
+        assert rk.reml_kernel.launches - launches == evals + blocks
+
+
+def test_reml_kernel_table_on_the_oracle_fixture(cuda):
+    """n = 1,500: the table through the kernel within the float32 contract
+    of the float64 oracle (|d log10 p| < 0.05) and of the same scan through
+    the plain algebra on the card."""
+    from pygemma_tpu_torch.core import assoc
+
+    y, G, W, K = oracle.simulate(n=1500, p=512, c=3, seed=42)
+    ev, U = np.linalg.eigh(K)
+    ref = oracle.assoc_scan(np.maximum(ev, 0.0), U.T @ W, U.T @ y,
+                            (U.T @ G)[:, :24])
+    cfg = pt.GwasConfig(snp_block=256)
+    launches = rk.reml_kernel.launches
+    df = pt.pygemma(y, G, W, K, config=cfg, device=cuda)
+    assert rk.reml_kernel.launches > launches
+    p = df["p_wald"].to_numpy()
+    assert np.abs(np.log10(p[:24]) - np.log10(ref["p_wald"])).max() < 0.05
+    plain = lambda x: solver.evaluate_plain  # noqa: E731
+    saved = solver.algebra, assoc.algebra
+    solver.algebra = assoc.algebra = plain
+    try:
+        launches = rk.reml_kernel.launches
+        off = pt.pygemma(y, G, W, K, config=cfg, device=cuda)
+        assert rk.reml_kernel.launches == launches
+    finally:
+        solver.algebra, assoc.algebra = saved
+    _close_p(df, off)

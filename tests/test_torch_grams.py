@@ -55,6 +55,24 @@ def _cmp_build(jout, tout, dtype):
         _close(a, b, dtype)
 
 
+def _assembled(packed):
+    """A packed build as (Gram tensors, sums), the JAX builders' form."""
+    return tg.assemble(packed), packed.sums
+
+
+def _slots(lam2, ev, shared, pairs, v, v2, ks):
+    """Per-slot builds of a (B, R) lambda stacked on axis 1, as the JAX
+    package's grams_per_snp_lambda_slots."""
+    parts = [tg.grams_per_snp_lambda(lam2[:, r], ev, shared, pairs, v, v2,
+                                     ks, want_logh=True)
+             for r in range(lam2.shape[1])]
+    grams = tuple(torch.stack([g[i] for g, _ in parts], dim=1)
+                  for i in range(len(ks)))
+    sums = tg.GramSums(*(torch.stack([sm[i] for _, sm in parts], dim=1)
+                         for i in range(3)))
+    return grams, sums
+
+
 BUILDERS = ["pairs", "unpack", "shared", "multi", "per_snp", "slots",
             "permute", "assemble_nd"]
 
@@ -83,8 +101,9 @@ def test_builder_matches_jax(inputs, builder, dtype):
             _cmp_build(
                 jg.grams_shared_multi(J["grid"], J["ev"], J["shared"], jp,
                                       J["v"], jv2, ks, want_logh=logh),
-                tg.grams_shared_multi(T["grid"], T["ev"], T["shared"], tp,
-                                      T["v"], tv2, ks, want_logh=logh),
+                _assembled(tg.grams_shared_multi_packed(
+                    T["grid"], T["ev"], T["shared"], tp, T["v"], tv2, ks,
+                    want_logh=logh)),
                 dtype)
     elif builder == "per_snp":
         for ks, logh in (((1, 2, 3), True), ((2,), False)):
@@ -99,9 +118,8 @@ def test_builder_matches_jax(inputs, builder, dtype):
             jg.grams_per_snp_lambda_slots(J["lam2"], J["ev"], J["shared"], jp,
                                           J["v"], jv2, (1, 2, 3),
                                           want_logh=True),
-            tg.grams_per_snp_lambda_slots(T["lam2"], T["ev"], T["shared"], tp,
-                                          T["v"], tv2, (1, 2, 3),
-                                          want_logh=True),
+            _slots(T["lam2"], T["ev"], T["shared"], tp, T["v"], tv2,
+                   (1, 2, 3)),
             dtype)
     elif builder == "permute":
         A = np.random.default_rng(3).normal(size=(4, 2, s + 1, s + 1))
@@ -129,8 +147,9 @@ def test_fused_builder_on_cpu_matches_jax_unfused(inputs, lam_key):
     _cmp_build(
         jfn(J[lam_key], J["ev"], J["shared"], jp, J["v"], jv2, (1, 3),
             want_logh=True),
-        tg.grams_per_snp_lambda_fused(T[lam_key], T["ev"], T["shared"], tp,
-                                      T["v"], ks, want_logh=True),
+        _assembled(tg.grams_per_snp_lambda_fused_packed(
+            T[lam_key], T["ev"], T["shared"], tp, T["v"], ks,
+            want_logh=True)),
         "float32")
 
 

@@ -195,8 +195,32 @@ def _jax_args(ev, sh, v):
 LAYOUTS = ["scalar", "multi", "per_snp", "slots"]
 
 
+def _torch_build(layout, lam, args, ks, comp):
+    """The port's builds of each layout: the packed builders, assembled and
+    corrected for the complement per lambda layout (a (B, R) slot layout
+    slot by slot)."""
+    if layout == "slots":
+        parts = [_torch_build("per_snp", lam[:, r], args, ks, comp)
+                 for r in range(lam.shape[1])]
+        return (tuple(torch.stack([g[i] for g, _ in parts], dim=1)
+                      for i in range(len(ks))),
+                tgrams.GramSums(*(torch.stack([sm[i] for _, sm in parts],
+                                              dim=1) for i in range(3))))
+    build = {"scalar": tgrams.grams_shared_lambda_packed,
+             "multi": tgrams.grams_shared_multi_packed,
+             "per_snp": tgrams.grams_per_snp_lambda_packed}[layout]
+    packed = build(lam, *args, ks, want_logh=True)
+    grams = tgrams.assemble(packed)
+    if comp is None:
+        return grams, packed.sums
+    return tgrams._complement_correct(grams, packed.sums, ks, comp, lam,
+                                      layout, True)
+
+
 def _build(mod, layout, lam, args, comp):
     ks = (1, 2) if layout == "multi" else (1, 2, 3)
+    if mod is tgrams:
+        return _torch_build(layout, lam, args, ks, comp)
     if layout == "scalar":
         return mod.grams_shared_lambda(lam, *args, ks, want_logh=True,
                                        comp=comp)
@@ -263,8 +287,21 @@ def test_kernel_plain_version_with_complement_matches_jax(rng, R):
     comp = tgrams.GramComplement(torch.tensor(1e-3), n_comp, _t(R_S),
                                  _t(R_vS), _t(R_vv))
     args = _torch_args(ev, sh, v)[:4]
-    got = tgrams.grams_per_snp_lambda_fused(_t(lam), *args, (1, 2),
-                                            want_logh=True, comp=comp)
+    packed = tgrams.grams_per_snp_lambda_fused_packed(_t(lam), *args, (1, 2),
+                                                      want_logh=True)
+    grams, sums = tgrams.assemble(packed), packed.sums
+    if R == 1:
+        got = tgrams._complement_correct(grams, sums, (1, 2), comp, _t(lam),
+                                         "per_snp", True)
+    else:  # slot by slot
+        parts = [tgrams._complement_correct(
+            tuple(A[:, r] for A in grams),
+            tgrams.GramSums(*(x[:, r] for x in sums)), (1, 2), comp,
+            _t(lam[:, r]), "per_snp", True) for r in range(R)]
+        got = (tuple(torch.stack([g[i] for g, _ in parts], dim=1)
+                     for i in range(2)),
+               tgrams.GramSums(*(torch.stack([sm[i] for _, sm in parts],
+                                             dim=1) for i in range(3))))
     jcomp = jgrams.GramComplement(jnp.float32(1e-3), n_comp,
                                   jnp.asarray(R_S), jnp.asarray(R_vS),
                                   jnp.asarray(R_vv))

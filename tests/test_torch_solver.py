@@ -141,3 +141,109 @@ def test_decade_points_equal_jax_pow(dtype):
     want = np.asarray(jnp.power(jnp.asarray(10.0, dtype),
                                 -5.0 + jnp.arange(11).astype(dtype)))
     np.testing.assert_array_equal(got, want)
+
+
+# --- routing to the REML kernel (ops/reml_kernel.py) --------------------------
+
+
+def test_cpu_tensors_never_reach_the_kernel():
+    """On the CPU every evaluation and the Wald step take the plain
+    algebra: the kernel's launch counter does not move."""
+    from pygemma_tpu_torch.core.assoc import assoc_block
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    ev, shared, v, permute, q = _gwas_block()
+    assert ts.algebra(torch.zeros(1)) is ts.evaluate_plain
+    t = lambda a: torch.as_tensor(a.astype(np.float32))  # noqa: E731
+    before, evals = rk.reml_kernel.launches, ts.evaluate.count
+    tsh, tv = t(shared), t(np.nan_to_num(v))
+    ts.solve_lambda(ts.LambdaProblem(t(ev), tsh, t_pairs(tsh), tv, tv * tv,
+                                     len(ev), q, permute, True), TCfg())
+    assoc_block(t(ev), tsh[:, :-1], tsh[:, -1], tv, TCfg())
+    assert ts.evaluate.count > evals
+    assert rk.reml_kernel.launches == before
+
+
+def _packed_block(s, dtype, B=4, n=30, seed=0):
+    """Packed Grams of a block of B SNPs with s shared columns, and its
+    per-SNP lambdas."""
+    from pygemma_tpu_torch.core.grams import grams_per_snp_lambda_packed
+
+    rng = np.random.default_rng(seed)
+    sh = torch.as_tensor(rng.normal(size=(n, s)).astype(dtype))
+    v = torch.as_tensor(rng.normal(size=(n, B)).astype(dtype))
+    ev = torch.as_tensor(rng.uniform(size=n).astype(dtype))
+    lam = torch.ones(B, dtype=sh.dtype)
+    return grams_per_snp_lambda_packed(lam, ev, sh, t_pairs(sh), v, v * v,
+                                       (1, 2)), lam
+
+
+def test_the_width_rule_routes_wide_designs_to_pytorch():
+    """The device alone routes: the PyTorch algebra takes every CPU input,
+    wide designs included, and the kernel every CUDA input, float32 or
+    float64, of any width.  A Gram wider than T_MAX is not refused: its
+    library keeps the source's loops."""
+    from types import SimpleNamespace
+
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    for dtype in (torch.float32, torch.float64):
+        card = SimpleNamespace(is_cuda=True, dtype=dtype)
+        assert ts.algebra(card) is rk.reml_kernel
+        assert ts.algebra(torch.zeros(1, dtype=dtype)) is ts.evaluate_plain
+    for t in (rk.T_MAX, rk.T_MAX + 1, 2 * rk.T_MAX):
+        p, lam = _packed_block(t - 1, np.float32)
+        _, got, dtype, _, _ = rk.kernel_args("d1", p, lam, n=30, q=t - 1,
+                                             permute=True)
+        assert (got, dtype) == (t, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_the_kernel_wrapper_raises_off_the_card(dtype):
+    """The wrapper launches or raises: CPU tensors (float32 and float64,
+    the types it takes) are refused, as are other float types and mixed
+    ones, before any launch."""
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    before = rk.reml_kernel.launches
+    p, lam = _packed_block(4, dtype)
+    kw = dict(n=30, q=4, permute=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.reml_kernel("d1", p, lam, **kw)
+    half = p._replace(S=p.S.half(), vS=p.vS.half(), vv=p.vv.half())
+    with pytest.raises(ValueError, match="float32 or float64"):
+        rk.reml_kernel("d1", half, lam.half(), **kw)
+    other = torch.float64 if dtype == np.float32 else torch.float32
+    with pytest.raises(ValueError, match="one float type"):
+        rk.reml_kernel("d1", p, lam.to(other), **kw)
+    assert rk.reml_kernel.launches == before
+
+
+def test_the_kernel_source_matches_the_wrapper():
+    """T_MAX, the modes and the argument block's fields, read from the
+    source (nvcc is not needed to know them), are the wrapper's: the
+    library's T_MAX and the block's size are checked again when it is
+    bound on the card, the fields' order only here."""
+    import re
+
+    from pygemma_tpu_torch.ops import reml_kernel as rk
+
+    src = rk.SOURCE.read_text()
+    assert int(re.search(r"#define REML_T_MAX (\d+)", src).group(1)) \
+        == rk.T_MAX
+    enum = re.search(r"enum Mode \{([^}]*)\}", src).group(1)
+    modes = {k.strip().lower(): int(v) for k, v in
+             (e.split("=") for e in enum.split(","))}
+    assert modes == rk.MODES
+
+    def fields(struct):
+        body = re.search(rf"struct {struct} \{{(.*?)\n\}};", src, re.S)
+        body = re.sub(r"//[^\n]*", "", body.group(1))
+        names = []
+        for decl in filter(None, (d.strip() for d in body.split(";"))):
+            first, *rest = (x.strip() for x in decl.split(","))
+            names += [re.split(r"[\s*]+", first)[-1]] + rest
+        return names
+
+    assert fields("View") == [f for f, _ in rk._View._fields_]
+    assert fields("Args") == [f for f, _ in rk._Args._fields_]

@@ -151,6 +151,8 @@ def test_evaluations_match_the_lambda_spans():
     assert {by_id[s.parent].name for s in lams} == {"reml", "null_fit"}
     assert all(s.attrs["batches"] >= 0 and s.attrs["newton"] >= 0
                for s in lams)
+    # the REML kernel runs on the card only
+    assert all(s.attrs["kernel_evals"] == 0 for s in lams)
 
 
 def test_a_span_closes_when_its_body_raises():
