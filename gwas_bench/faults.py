@@ -6,15 +6,15 @@ on the card at a cell's own size.
   lambda search hands back lambda = 1, where it would start;
 - ``stale_basis``: a step that returns its state unchanged: the program's
   eigenbasis cache takes every kinship for the one it holds;
-- ``half_block``: half of the batch left out: each streamed block's second
-  half of SNPs is replaced by its first half;
+- ``half_block``: half of the batch left out: each streamed block's (or a
+  rank's share's) second half of SNPs is replaced by its first half;
 - ``altered_beta``: an answer altered where it is produced: every block's
   beta leaves the association step 1% off;
 - ``ml_tau``: an answer altered where the table is made: tau takes the ML
-  degrees of freedom n where GEMMA's REML tau takes n - c - 1.
-
-No cell runs on more than one card, so none has an exchange between cards
-to leave out.
+  degrees of freedom n where GEMMA's REML tau takes n - c - 1;
+- ``no_exchange``: the exchange between cards left out: every rank's
+  gather of the table hands back its own shares in place of the other
+  ranks' (a multi-card cell's fault; it changes nothing without a mesh).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 import contextlib
 
 NAMES = ("stuck_lambda", "stale_basis", "half_block", "altered_beta",
-         "ml_tau")
+         "ml_tau", "no_exchange")
 
 
 def _patches(name: str) -> list:
@@ -46,7 +46,8 @@ def _patches(name: str) -> list:
         class Halved(api.SnpBlockStreamer):
             def __iter__(self):
                 for start, stop, xb in super().__iter__():
-                    h = (stop - start) // 2
+                    # a rank of a mesh gets its share of the block
+                    h = min(stop - start, xb.shape[1]) // 2
                     xb = xb.clone()
                     xb[:, h:2 * h] = xb[:, :h]
                     yield start, stop, xb
@@ -70,6 +71,15 @@ def _patches(name: str) -> list:
             return real_frame(out, n, c, tests, pheno)
 
         return [(api, "_frame", frame)]
+    if name == "no_exchange":
+        import torch.distributed as dist
+
+        from pygemma_tpu_torch.parallel import distributed
+
+        def own(t):
+            return [t.cpu().numpy()] * dist.get_world_size()
+
+        return [(distributed, "all_gather", own)]
     raise ValueError(f"unknown fault {name!r}")
 
 

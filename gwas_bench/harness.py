@@ -12,13 +12,17 @@ over the cohorts from the first: with one cohort every call finds its
 basis warm, with two the program's one-entry cache misses on every call.
 A traced run (``trace``) profiles exactly one such call as its window and
 reads the cell's per-layer metrics from it.
+
+A cell on more than one card (``chips`` > 1) runs this in each of its rank
+processes (``launch.py``, ``ranks.py``): the calls take the traffic's mesh,
+every rank makes every call in the same order, rank 0 decides before each
+window call whether another is made, and rank 0 alone reports and judges,
+with the fullest card's peak and every other rank's tables held to its own.
 """
 
 from __future__ import annotations
 
 import math
-import os
-import sys
 import time
 from typing import NamedTuple
 
@@ -27,35 +31,19 @@ import torch
 
 from . import cohorts as gen
 from . import judge, spec, trace
-
-FORBIDDEN = ("jax", "jaxlib", "flax", "pygemma_tpu")
-
-
-def process_start() -> float:
-    """This process's start on the time.time() clock (from /proc)."""
-    with open("/proc/self/stat") as f:
-        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
-    with open("/proc/uptime") as f:
-        uptime = float(f.read().split()[0])
-    now = time.time()
-    return now - (uptime - ticks / os.sysconf("SC_CLK_TCK"))
-
-
-def forbidden_modules() -> list:
-    """Loaded modules whose top-level name is JAX's or the JAX package's."""
-    return sorted({m.split(".")[0] for m in list(sys.modules)}
-                  & set(FORBIDDEN))
+from .launch import forbidden_modules, process_start
 
 
 class Program:
     """``pygemma`` on the cell's cohorts, as the configuration states."""
 
-    def __init__(self, cfg: dict, cohorts, device):
+    def __init__(self, cfg: dict, cohorts, device, mesh=None):
         import pygemma_tpu_torch as pt
         from pygemma_tpu_torch.io.packed import PackedMatrix
 
         self.pt = pt
         self.device = device
+        self.mesh = mesh
         self.gcfg = pt.GwasConfig(snp_block=cfg["snp_block"])
         kin = cfg["kinship"]
         self.inputs = []
@@ -75,7 +63,7 @@ class Program:
         """One study of cohort ``i``: its table as (k, p) columns."""
         Y, X, W, K = self.inputs[i]
         df = self.pt.pygemma(Y, X, W, K, config=self.gcfg,
-                             device=self.device)
+                             device=self.device, mesh=self.mesh)
         k = 1 if Y.ndim == 1 else Y.shape[1]
         out = {}
         for col in judge.COLUMNS:
@@ -112,6 +100,7 @@ class Context(NamedTuple):
     blocks: int  # SNP blocks streamed in the traced window
     counters: dict  # change of the program's counters over it
     peaks: dict  # the card's published peaks (None if not in the table)
+    group: object = None  # ranks.Group of a multi-card cell, else None
 
 
 E2E = {
@@ -127,10 +116,33 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
+def _another(calls: list, t0: float, seconds: float, group) -> bool:
+    """Whether the window makes another call: always a first, then until
+    ``seconds`` have passed; in a multi-card cell, rank 0's answer."""
+    go = not calls or time.perf_counter() - t0 < seconds
+    return go if group is None else group.decide(go)
+
+
+def _ranks_agree(group, calls: list, setup_peak: int, peak: int):
+    """Every rank's peaks and table digests, gathered: (the fullest card's
+    set-up-and-window peak, the fullest card's window peak, the other
+    ranks' calls whose table differs from rank 0's, a missing or extra call
+    counting as one, this rank's digests)."""
+    from . import ranks
+
+    mine = [ranks.table_digest(c.table) for c in calls]
+    every = group.gather((max(setup_peak, peak), peak, mine))
+    ref = every[0][2]
+    differ = sum(sum(a != b for a, b in zip(ref, d[2]))
+                 + abs(len(ref) - len(d[2])) for d in every[1:])
+    return max(e[0] for e in every), max(e[1] for e in every), differ, mine
+
+
 def run(name: str, seed: int, seconds: float, traced: bool, device="cuda",
         cell: spec.Cell = None, started: float = None, log=print) -> dict:
-    """One run of cell ``name``; returns the result line's object.  Tests
-    pass a shrunken ``cell`` and ``device="cpu"``."""
+    """One run of cell ``name``; returns the result line's object (None on
+    a rank other than 0 of a multi-card cell).  Tests pass a shrunken
+    ``cell`` and ``device="cpu"``."""
     started = process_start() if started is None else started
     cell = cell or spec.load_cell(name)
     dev = torch.device(device)
@@ -140,14 +152,29 @@ def run(name: str, seed: int, seconds: float, traced: bool, device="cuda",
 
     # --- set-up -----------------------------------------------------------
     log(f"set-up: started {time.time() - started!r} s ago")
+    group = None
+    if cell.chips > 1:
+        from . import ranks
+
+        group = ranks.Group(traffic["mesh"], cell.chips, dev)
+        dev = group.device
+        log(f"set-up: rank {group.rank} of {group.size} on {dev} at "
+            f"{time.time() - started!r} s")
     torch.zeros(1, device=dev)  # the device's context
     log(f"set-up: device ready at {time.time() - started!r} s")
     cohorts = gen.make_cohorts(cfg, traffic, seed, dev)
     sync(dev)
     log(f"set-up: cohorts drawn at {time.time() - started!r} s")
-    prog = Program(cfg, cohorts, dev)
+    if group is not None:
+        group.same_inputs(cohorts)
+        group.build(cfg)
+        log(f"set-up: inputs agree, libraries built at "
+            f"{time.time() - started!r} s")
+    prog = Program(cfg, cohorts, dev, None if group is None else group.mesh)
     prog.call(len(cohorts) - 1)
     sync(dev)
+    if group is not None:
+        group.barrier()
     setup_s = time.time() - started
     setup_peak = (torch.cuda.max_memory_allocated(dev)
                   if dev.type == "cuda" else 0)
@@ -169,7 +196,7 @@ def run(name: str, seed: int, seconds: float, traced: bool, device="cuda",
     else:
         t0 = time.perf_counter()
         ends = []
-        while not calls or time.perf_counter() - t0 < seconds:
+        while _another(calls, t0, seconds, group):
             i = turn(len(calls))
             calls.append(judge.Call(i, prog.call(i)))
             ends.append(time.perf_counter() - t0)
@@ -182,6 +209,12 @@ def run(name: str, seed: int, seconds: float, traced: bool, device="cuda",
     found = forbidden_modules()
     if found:
         raise SystemExit(f"the run loaded {found}")
+    memory_peak = max(setup_peak, peak)
+    if group is not None:
+        memory_peak, peak, differ, digests = _ranks_agree(
+            group, calls, setup_peak, peak)
+        log(f"window: {len(calls)} calls, peak {peak} bytes on the fullest "
+            f"card, table digests {digests}")
     w = Window(window_s, calls, len(calls) * k * p, len(calls) * n_blocks,
                peak)
 
@@ -190,13 +223,13 @@ def run(name: str, seed: int, seconds: float, traced: bool, device="cuda",
     dev_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                 "kind": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"),
-                "count": 1, "memory_peak_bytes": max(setup_peak, peak)}
+                "count": cell.chips, "memory_peak_bytes": memory_peak}
     if traced:
         ctx = Context(cell, cohorts, dev, red, w.blocks,
                       {key: after[key] - before[key] for key in after},
-                      spec.peaks(dev_info["kind"]))
+                      spec.peaks(dev_info["kind"]), group)
         metrics = {}
-        for m in cell.per_layer:
+        for m in cell.per_layer:  # every rank reads them, in this order
             value = spec.reader(m["name"]).read(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
@@ -222,15 +255,22 @@ def run(name: str, seed: int, seconds: float, traced: bool, device="cuda",
     del prog
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    if group is not None and group.rank != 0:
+        group.close()  # waits for rank 0's check
+        return None
     t0 = time.perf_counter()
     rng = np.random.default_rng(gen.derive(seed, "judge"))
     rows = judge.sample(calls, k, p, cfg["snp_block"], rng)
     per_row = judge.compare(calls, cohorts, cfg, rows, dev)
     numbers = judge.summary(per_row, result["failed"])
+    if group is not None:
+        numbers["rank_mismatch"] = float(differ)
     log(f"check of {len(rows)} answers: {time.perf_counter() - t0!r} s")
     result["correct"] = judge.verdict(numbers, cell.limits)
     result["checks"] = {
         name: {"value": v if math.isfinite(v) else None,
                "limit": cell.limits[name]["limit"]}
         for name, v in numbers.items()}
+    if group is not None:
+        group.close()
     return result

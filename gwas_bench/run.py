@@ -9,6 +9,10 @@ JSON object (``correct``, ``attempted``, ``failed``, ``metrics``,
 number compared beside its limit); the last lines on standard error give
 the same numbers and limits.  Without a CUDA card, or with fewer cards
 than the cell asks for, it prints no result and exits non-zero.
+
+A cell on one card runs in this process.  A cell on more cards starts one
+process a card running this same command (``launch.py``), which print
+rank 0's result through this one.
 """
 
 from __future__ import annotations
@@ -42,17 +46,22 @@ def main() -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args()
 
-    from gwas_bench import harness, spec
+    from gwas_bench import launch
 
-    started = harness.process_start()
-    import pygemma_tpu_torch  # noqa: F401  (the system under test)
-
+    rank_of = launch.launched_at()  # the launcher's start, in a rank
+    started = launch.process_start() if rank_of is None else rank_of
     with open(ROOT / "BENCHMARK.json") as f:
         chips = {w["name"]: w["chips"]
                  for w in json.load(f)["workloads"]}.get(args.workload)
     if chips is None:
         print(f"no workload {args.workload!r}", file=sys.stderr)
         return 2
+    if chips > 1 and rank_of is None:
+        return launch.launch([sys.executable, str(Path(__file__).resolve()),
+                              *sys.argv[1:]], chips, started)
+    from gwas_bench import harness, spec
+
+    import pygemma_tpu_torch  # noqa: F401  (the system under test)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -63,6 +72,8 @@ def main() -> int:
     result = harness.run(args.workload, args.seed, args.seconds,
                          bool(args.trace), "cuda", cell, started,
                          log=lambda s: print(s, file=sys.stderr, flush=True))
+    if result is None:  # a rank other than 0: rank 0 reports
+        return 0
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",
               file=sys.stderr)

@@ -11,9 +11,11 @@ two more calls of the cell's program, each made at most once a run:
 
 Both run ``harness.Program`` on the run's own cohorts (``PackedMatrix.cols``
 is a view and the kinship's fingerprint is its content, so nothing is
-copied and the eigen cache knows them).  Call (a) takes the window's turn 1
-and call (b) turn 2, so each finds the eigenbasis as the window's calls do:
-warm with one cohort, cold with two taking turns.  Against a program
+copied and the eigen cache knows them), on the run's mesh in a multi-card
+cell, where every rank runs the same readers and so makes the same calls.
+Call (a) takes the window's turn 1 and call (b) turn 2, so each finds the
+eigenbasis as the window's calls do: warm with one cohort, cold with two
+taking turns.  Against a program
 without the span recorder (``utils/profiling.py`` without ``enable`` and
 ``collect``) every function here returns None.
 """
@@ -74,7 +76,8 @@ def _counters() -> dict:
 def _call(ctx, turn: int):
     """The cell's program and the cohort of the window's ``turn``."""
     prog = _once(ctx, "program", lambda: harness.Program(
-        ctx.cell.config, ctx.cohorts, ctx.device))
+        ctx.cell.config, ctx.cohorts, ctx.device,
+        None if ctx.group is None else ctx.group.mesh))
     return lambda: prog.call(turn % len(ctx.cohorts))
 
 

@@ -7,8 +7,9 @@ in a file of its own under this folder:
 
 - ``configs/<config>.json``: the cohort's sizes, genotype and kinship
   recipe, and the guarantees the scan keeps;
-- ``traffic/<traffic>.json``: phenotypes per call and cohorts the calls
-  take turns over;
+- ``traffic/<traffic>.json``: phenotypes per call, cohorts the calls
+  take turns over and, for a cell on more than one card, the ``mesh``
+  (``snp`` and ``sample`` ranks) its ``pygemma`` calls run on;
 - ``limits/<cell>.json``: the comparison's limits, with the readings they
   were set from;
 - ``metrics/<metric>.py``, or ``metrics/<name before the first dot>.py``
@@ -42,6 +43,7 @@ class Cell(NamedTuple):
     limits: dict
     end_to_end: list  # BENCHMARK.json entries this cell reports
     per_layer: list
+    chips: int = 1  # cards, one process each when more than 1
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -59,7 +61,8 @@ def load_cell(name: str, root: Path = HERE.parent,
                 _json(here / "traffic" / f"{w['traffic']}.json"),
                 _json(here / "limits" / f"{name}.json"),
                 [m for m in bench["end_to_end"] if _reports(m, name)],
-                [m for m in bench["per_layer"] if _reports(m, name)])
+                [m for m in bench["per_layer"] if _reports(m, name)],
+                w["chips"])
 
 
 def _module(path: Path) -> ModuleType:

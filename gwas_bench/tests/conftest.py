@@ -14,7 +14,8 @@ from gwas_bench import spec  # noqa: E402
 SMALL = {"lowrank_grm": dict(n=800, p=1536, snp_block=512, snps=192),
          "dense_grm": dict(n=500, p=1024, snp_block=256)}
 CELLS = ("ukb_synth_50k.scan", "wtccc_dense_10k.study",
-         "ukb_synth_50k.pheno4", "wtccc_dense_10k.scan")
+         "ukb_synth_50k.pheno4", "wtccc_dense_10k.scan",
+         "ukb_synth_50k.mesh4")
 SEED = 2 ** 31 + 12345  # past 32 signed bits, as a run's seed may be
 
 

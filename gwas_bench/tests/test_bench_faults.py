@@ -1,8 +1,8 @@
 """The timed path broken underneath: every run drives the rest of the
 harness (on the CPU, past its look for a card) and ``correct`` must come
-out false, once for each fault a cell can have (``faults.py``).  Every
-cell runs on one card, so none has an exchange between cards to leave
-out."""
+out false, once for each fault a cell can have (``faults.py``).  The
+four-card cell's faults, the exchange between cards left out among them,
+are planted in its ranks through the launcher (``test_bench_ranks.py``)."""
 
 import pytest
 

@@ -31,7 +31,8 @@ def test_cell_loads_by_name(name):
     cell = spec.load_cell(name)
     assert cell.config["snp_block"] > 0
     assert cell.traffic["phenotypes"] >= 1
-    assert set(cell.limits) == set(judge.NUMBERS) | {"failed"}
+    ranks = {"rank_mismatch"} if cell.chips > 1 else set()
+    assert set(cell.limits) == set(judge.NUMBERS) | {"failed"} | ranks
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 3
     assert cell.per_layer
