@@ -1,6 +1,8 @@
-"""Shared helpers of the benchmark's CPU tests: the cells shrunk to sizes a
-test run holds."""
+"""Shared helpers of the benchmark's CPU tests: the cells of
+``BENCHMARK.json`` and their configurations, shrunk to sizes a test run
+holds."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -13,9 +15,10 @@ from gwas_bench import spec  # noqa: E402
 
 SMALL = {"lowrank_grm": dict(n=800, p=1536, snp_block=512, snps=192),
          "dense_grm": dict(n=500, p=1024, snp_block=256)}
-CELLS = ("ukb_synth_50k.scan", "wtccc_dense_10k.study",
-         "ukb_synth_50k.pheno4", "wtccc_dense_10k.scan",
-         "ukb_synth_50k.mesh4")
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+#: every cell of the benchmark, in its order: a new workload entry is a new
+#: case of each test parametrized by it
+CELLS = tuple(w["name"] for w in BENCH["workloads"])
 SEED = 2 ** 31 + 12345  # past 32 signed bits, as a run's seed may be
 
 
@@ -36,3 +39,15 @@ def small(cell: spec.Cell) -> spec.Cell:
 @pytest.fixture
 def small_cell():
     return lambda name: small(spec.load_cell(name))
+
+
+@pytest.fixture(autouse=True)
+def _empty_eigen_cache():
+    """Every test leaves the program's one-entry eigen cache empty: cells
+    share cohorts (the scan cells' is the study cell's first), and a test
+    that holds a table to the bit computes its basis at its own thread
+    count, so no test may find one that another left."""
+    from pygemma_tpu_torch import api
+
+    yield
+    api._EIGEN_DEV_CACHE.clear()

@@ -15,13 +15,23 @@ from gwas_bench import judge, spec
 
 
 def test_benchmark_names_every_file():
+    """Every workload names a listed configuration, a traffic mix and a
+    limits file that exist where ``spec.load_cell`` looks for them, and is
+    called ``<config>.<traffic>``; every per-layer metric has a reader."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     assert bench["paths"] == ["gwas_bench"]
+    configs = {c["name"]: c for c in bench["configs"]}
     for c in bench["configs"]:
+        assert c["file"] == f"gwas_bench/configs/{c['name']}.json"
         assert (ROOT / c["file"]).exists()
         assert json.loads((ROOT / c["file"]).read_text())["reduced"] == \
             c["reduced"]
-    assert tuple(w["name"] for w in bench["workloads"]) == CELLS
+    assert CELLS and len(set(CELLS)) == len(CELLS)
+    for w in bench["workloads"]:
+        assert w["config"] in configs, w["name"]
+        assert (spec.HERE / "traffic" / f"{w['traffic']}.json").exists()
+        assert (spec.HERE / "limits" / f"{w['name']}.json").exists()
+        assert w["name"] == f"{w['config']}.{w['traffic']}"
     for m in bench["per_layer"]:
         spec.reader(m["name"])  # raises if the metric has no reader
 
