@@ -39,13 +39,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel);
 7. kernel times at both paths' shapes: the kernel's device time per call
    (torch.profiler), its wall time per call and the plain version's wall
-   time; the same for the REML kernel in each mode of phase 3's cases.
+   time; the same for the REML kernel in each mode of phase 3's cases; the
+   rotation kernel at the benchmark's three block shapes (CUDA events),
+   beside its bound and torch.matmul's time, its error against float64
+   held to at most twice cuBLAS float32's.
    Phases 5, 6, 9 and 10 time their scans before any profiler runs,
    because the profiler, once run, slows every later launch from the host;
-8. one JSON line of the kernels, K1 and the REML kernel, each with its
-   launches by path (phase 12a's scan is one of them; every path counts
-   the REML kernel's launches against the search's evaluations), and a
-   last line ``{"ok": true, "device": {...}}``;
+8. one JSON line of the kernels, K1, the REML kernel and the rotation
+   kernel, each with its launches by path (phase 12a's scan is one of
+   them; every path counts the REML kernel's launches against the search's
+   evaluations, and every in-process path the rotation kernel's against its
+   block rotations: all of them, and nothing else), and a last line
+   ``{"ok": true, "device": {...}}``;
 9. (run right after phase 5, on its cohort) the batched multi-phenotype
    scan, bench.py:401-423: y and three more phenotypes built as there, one
    block to warm, then all four over p = 100,000 in one call, with the
@@ -132,6 +137,11 @@ SMALL_DLOGP = 0.05  # the JAX package's float32 contract vs the oracle
 CARD_CPU_RTOL = 1e-6  # float64 card vs float64 CPU
 OFF_DLOGP, OFF_BETA_RTOL = 0.05, 5e-3  # kernel on vs off at full width
 K_PHENOS = 4  # bench.py's multi-phenotype step (PYGEMMA_BENCH_PHENOS)
+# phase 7: the rotation kernel's block shapes (r, n, B, U column-major):
+# the implicit scan's (one card, and a quarter block a rank on four) and
+# the dense scan's
+ROTATE_SHAPES = ((16_384, 50_000, 4_096, False), (16_384, 50_000, 1_024, False),
+                 (N_FULL, N_FULL, BLOCK, True))
 GRM_CHECK, GRM_RTOL = 512, 1e-5  # K[:512, :512] against float64 NumPy
 CLI_TIMEOUT = 900  # seconds for one CLI subprocess
 MESH_RANKS = 2  # phase 11: ranks sharing the one card
@@ -180,13 +190,31 @@ def reml_launches(solver, wald_steps, label):
 
 
 def reset_launches(gk, solver):
-    """Set K1's and the REML kernel's launch counters and the search's
-    evaluation counter to 0."""
+    """Set K1's, the REML kernel's and the rotation kernel's launch
+    counters, the search's evaluation counter and the top-space rotation
+    counter to 0."""
+    from pygemma_tpu_torch import api
     from pygemma_tpu_torch.ops import reml_kernel as rk
+    from pygemma_tpu_torch.ops import rotate_kernel as rot
 
     gk.fused_grams.launches = 0
     rk.reml_kernel.launches = 0
+    rot.rotate_kernel.launches = 0
     solver.evaluate.count = 0
+    api._rotate_top.count = 0
+
+
+def rotate_launches(rotations, label):
+    """The rotation kernel's launches since :func:`reset_launches`, checked
+    against the path's block rotations: each went through the kernel, and
+    nothing else launched it."""
+    from pygemma_tpu_torch.ops import rotate_kernel as rot
+
+    launches = rot.rotate_kernel.launches
+    check(launches == rotations > 0,
+          f"{label}: {launches} rotation kernel launches for {rotations} "
+          "block rotations")
+    return launches
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -344,6 +372,55 @@ def phase_kernel_times(gk):
     implicit = kernel_time_row(gk, PK_LARGE, BLOCK_LARGE, C_LARGE, 3, False,
                                gen)
     return rows, implicit
+
+
+def rotate_time_row(r, n, B, column_major, gen):
+    """The rotation kernel at one block shape: its time a launch and
+    torch.matmul's (CUDA events around back-to-back calls; a call is tens
+    of ms, so host gaps are noise), its bound, and both errors against the
+    float64 product, the kernel's held to at most twice cuBLAS's."""
+    import torch
+
+    from pygemma_tpu_torch.ops import rotate_kernel as rot
+
+    U = (torch.randn(r, n, device="cuda", generator=gen).T if column_major
+         else torch.randn(n, r, device="cuda", generator=gen)) / n ** 0.5
+    p = torch.full((n, B), 0.3, device="cuda")
+    X = ((torch.bernoulli(p, generator=gen) + torch.bernoulli(p, generator=gen)
+          - 0.6) / 0.648).contiguous()
+    del p
+    got = rot.rotate_kernel(U, X)
+    ref = torch.matmul(U.double().T, X.double())
+    scale = ref.abs().max().item()
+    err = (got.double() - ref).abs().max().item() / scale
+    lib_err = (torch.matmul(U.T, X).double() - ref).abs().max().item() / scale
+    del ref
+    check(err <= 2.0 * lib_err,
+          f"rotation r={r} n={n} B={B}: error {err:.3e} of max|C| against "
+          f"cuBLAS float32's {lib_err:.3e}")
+    check(torch.equal(got, rot.rotate_kernel(U, X)),
+          f"rotation r={r} n={n} B={B}: two launches differ")
+    ms = cuda_ms(lambda: rot.rotate_kernel(U, X), reps=5)
+    lib_ms = cuda_ms(lambda: torch.matmul(U.T, X), reps=5)
+    bound, by = rot.bound_ms(r, n, B)
+    del U, X, got
+    torch.cuda.empty_cache()
+    print(f"rotate r={r} n={n} B={B} U {'column' if column_major else 'row'}"
+          f"-major: kernel {ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound "
+          f"{bound:.3f} ms ({by}) = {100 * bound / ms:.1f}% of it; max err "
+          f"{err:.3e} of max|C| (cuBLAS float32 {lib_err:.3e}, "
+          f"{err / lib_err:.2f}x)", flush=True)
+    return dict(ms=ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                roofline=bound / ms, max_rel_err=err, library_max_rel_err=lib_err)
+
+
+def phase_rotate_times():
+    """The rotation kernel's rows at :data:`ROTATE_SHAPES`."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    return {f"r={r} n={n} B={B}": rotate_time_row(r, n, B, cm, gen)
+            for r, n, B, cm in ROTATE_SHAPES}
 
 
 def reml_cases():
@@ -860,6 +937,10 @@ def phase_large(pt, gk, solver, tmp):
     e2e_s = time.time() - t0
     launches = gk.fused_grams.launches
     reml, evals = reml_launches(solver, n_blocks, "large")
+    check(api._rotate_top.count == n_blocks,
+          f"large: {api._rotate_top.count} top-space rotations for "
+          f"{n_blocks} blocks")
+    rot_launches = rotate_launches(n_blocks, "large")
     syncs = solver.host_value.count
     peak = torch.cuda.max_memory_allocated()
     check(launches > 0, "the kernel was never launched on the implicit "
@@ -983,6 +1064,7 @@ def phase_large(pt, gk, solver, tmp):
     api._EIGEN_DEV_CACHE.clear()
     torch.cuda.empty_cache()
     record = dict(launches=launches, reml_launches=reml, evaluations=evals,
+                  rotate_launches=rot_launches,
                   host_syncs=syncs, top_basis_s=top_s,
                   top_basis_stages=stages, e2e_s=e2e_s, scan_s=scan_s,
                   snps_per_s=P_LARGE / scan_s, cached_scan_s=cached_s,
@@ -1049,7 +1131,6 @@ def phase_multi(pt, gk, solver, ctx, tmp):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(gk, solver)
     solver.host_value.count = 0
-    api._rotate_top.count = 0
     t0 = time.time()
     dfk = pt.pygemma(Yk, X, W, lrk, config=cfg)  # the path's run
     multi_s = time.time() - t0
@@ -1061,6 +1142,7 @@ def phase_multi(pt, gk, solver, ctx, tmp):
     check(launches > 0, "the kernel was never launched on the batched path")
     check(rotations == n_blocks,
           f"{rotations} top-space rotations for {n_blocks} blocks")
+    rot_launches = rotate_launches(rotations, "multi")
     check(len(dfk) == K_PHENOS * P_LARGE, "wrong number of table rows")
     finite = float(np.isfinite(dfk["p_wald"].to_numpy()).mean())
     check(finite > 0.99, f"only {finite:.4f} of p_wald is finite")
@@ -1099,6 +1181,7 @@ def phase_multi(pt, gk, solver, ctx, tmp):
     api._EIGEN_DEV_CACHE.clear()
     torch.cuda.empty_cache()
     return dict(k=K_PHENOS, launches=launches, reml_launches=reml,
+                rotate_launches=rot_launches,
                 evaluations=evals, rotations=rotations,
                 rotations_per_block=rotations / n_blocks,
                 looped_rotations_per_block=looped_rot, host_syncs=syncs,
@@ -1365,11 +1448,14 @@ def mesh_rank_large(tmp: str, prefix: str) -> None:
     scan_s = time.time() - t0
     launches = gk.fused_grams.launches
     reml, evals = reml_launches(solver, None, f"mesh rank {rank}")
+    # this rank's share of each block, rotated into the top space
+    rot = rotate_launches(pt.api._rotate_top.count, f"mesh rank {rank}")
     record = dict(rank=rank, backend=dist.get_backend(),
                   device=str(torch.cuda.current_device()),
                   setup_s=setup_s, first_call_s=first_s,
                   stages=stages, scan_s=scan_s, launches=launches,
                   launches_all_ranks=all_sum(launches),
+                  rotate_launches_all_ranks=all_sum(rot),
                   reml_launches_all_ranks=all_sum(reml),
                   evaluations_all_ranks=all_sum(evals),
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1434,6 +1520,7 @@ def phase_mesh_large(ctx, large, prefix, tmp):
           "with the processes' start", flush=True)
     return dict(ranks=MESH_RANKS, backend="gloo", launches=launches,
                 reml_launches=reml,
+                rotate_launches=recs[0]["rotate_launches_all_ranks"],
                 evaluations=recs[0]["evaluations_all_ranks"], basis_s=basis_s, broadcast_s=bcast_s, scan_s=scan_s,
                 scan_s_by_rank=[rec["scan_s"] for rec in recs],
                 first_call_s=[rec["first_call_s"] for rec in recs],
@@ -1678,6 +1765,7 @@ def phase_dc_large(pt, gk, large, ctx, tmp):
     scan_s = time.time() - t0
     launches = gk.fused_grams.launches
     reml, evals = reml_launches(solver, -(-P_LARGE // BLOCK_LARGE), "dc")
+    rot_launches = rotate_launches(api._rotate_top.count, "dc")
     check(launches > 0, "the kernel was never launched on the dc path")
     d = lowrank_close(df, ctx["table"], "dc basis against cuSOLVER's")
     api._EIGEN_DEV_CACHE.clear()
@@ -1691,6 +1779,7 @@ def phase_dc_large(pt, gk, large, ctx, tmp):
                 phase5_gram_eigh_s=large["top_basis_stages"]["gram_eigh_s"],
                 eigvalsh_s=cus_s, split=split, peak_gib=peak / 2**30,
                 **errs, cold_e2e_s=cold_s, scan_s=scan_s, launches=launches,
+                rotate_launches=rot_launches,
                 reml_launches=reml, evaluations=evals, vs_phase5_dlogp=d)
 
 
@@ -1894,11 +1983,14 @@ def shard_rank(tmp: str) -> None:
             lambda: pt.pygemma(y, X, W, K, config=cfg, mesh=mesh, verbose=1))
     launches = gk.fused_grams.launches
     reml, evals = reml_launches(solver, None, f"sharded rank {rank}")
+    # snp = 1: every rank rotates every block by the whole basis
+    rot = rotate_launches(-(-P_FULL // BLOCK), f"sharded rank {rank}")
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"^(.+) - ([0-9.]+) s$", log.getvalue(), re.M)}
     rec["dense"] = dict(e2e_s=e2e_s, peak_gib=peak, sent_gib=sent,
                         launches=launches, stages=stages,
                         launches_all_ranks=all_sum(launches),
+                        rotate_launches_all_ranks=all_sum(rot),
                         reml_launches_all_ranks=all_sum(reml),
                         evaluations_all_ranks=all_sum(evals))
     np.save(os.path.join(tmp, f"shard_rank{rank}.npy"),
@@ -2003,6 +2095,7 @@ def phase_sharded_eigh(full, full_table, dc_large, dc_dense, tmp):
           f"{wall:.1f} s wall with the processes' start", flush=True)
     return dict(ranks=SHARD_RANKS, backend="gloo", launches=launches,
                 reml_launches=dense["reml_launches_all_ranks"],
+                rotate_launches=dense["rotate_launches_all_ranks"],
                 evaluations=dense["evaluations_all_ranks"],
                 dense=dict(eigh_s=eigh_s, phase6_eigh_s=full["eigh_s"],
                            phase12b_dc_s=dc_dense["seconds"],
@@ -2040,6 +2133,7 @@ def phase_full(pt, gk, solver):
     e2e_s = time.time() - t0
     launches = gk.fused_grams.launches
     reml, evals = reml_launches(solver, -(-P_FULL // BLOCK), "full")
+    rot_launches = rotate_launches(-(-P_FULL // BLOCK), "full")
     syncs = solver.host_value.count
     peak = torch.cuda.max_memory_allocated()
     check(launches > 0, "the kernel was never launched on the main path")
@@ -2081,7 +2175,7 @@ def phase_full(pt, gk, solver):
                           BLOCK)
     print(json.dumps({"profile": prof}), flush=True)
     return dict(launches=launches, reml_launches=reml, evaluations=evals,
-                host_syncs=syncs, eigh_s=eigh_s,
+                rotate_launches=rot_launches, host_syncs=syncs, eigh_s=eigh_s,
                 e2e_s=e2e_s, scan_s=scan_s, snps_per_s=P_FULL / scan_s,
                 peak_gib=peak / 2**30, finite_p=finite), dc, df
 
@@ -2214,9 +2308,10 @@ def main() -> int:
         pt.api._EIGEN_DEV_CACHE.clear()
         del ctx
 
-    # 7. kernel times: K1, then the REML kernel
+    # 7. kernel times: K1, the REML kernel, the rotation kernel
     rows, implicit_row = phase_kernel_times(gk)
     reml_rows = phase_reml_times()
+    rot_rows = phase_rotate_times()
 
     # 11. (c) a one-rank NCCL mesh in this process
     mesh_nccl = phase_mesh_nccl(pt, oracle)
@@ -2247,6 +2342,9 @@ def main() -> int:
     reml_by_path.update({k: cli[f"reml_launches_{r}"]
                          for k, r in cli_paths.items()})
     reml_main = reml_rows["dense.newton"]
+    rot_main = rot_rows["r={} n={} B={}".format(*ROTATE_SHAPES[0][:3])]
+    rot_by_path = {k: v["rotate_launches"] for k, v in paths.items()
+                   if "rotate_launches" in v}
     record = {"kernels": [{
         "name": "fused_grams (k1_partials_kernel + k1_reduce_kernel)",
         "route": "cuda",
@@ -2313,6 +2411,24 @@ def main() -> int:
         "wall_ms": reml_main["wall_ms"],
         "shape": f"Newton step, n={N_FULL} B={BLOCK} c={C_FULL}",
         "by_case": reml_rows,
+    }, {
+        "name": "rotate_kernel",
+        "route": "cuda",
+        "source": "pygemma_tpu_torch/csrc/rotate_kernel.cu",
+        "replaces": None,  # the JAX package's rotation is an XLA dot
+        "launches": sum(rot_by_path.values()),
+        # each equals the path's block rotations (checked where counted)
+        "launches_by_path": rot_by_path,
+        "max_rel_err": rot_main["max_rel_err"],
+        "library_max_rel_err": rot_main["library_max_rel_err"],
+        "ms": rot_main["ms"],
+        # the plain version is torch.matmul: the library call itself
+        "plain_ms": rot_main["library_ms"],
+        "bound_ms": rot_main["bound_ms"],
+        "bound_by": rot_main["bound_by"],
+        "library_ms": rot_main["library_ms"],
+        "shape": "r={} n={} B={}".format(*ROTATE_SHAPES[0][:3]),
+        "by_shape": rot_rows,
     }]}
     print(json.dumps({"large_implicit": large}), flush=True)
     print(json.dumps({"full_width": full}), flush=True)

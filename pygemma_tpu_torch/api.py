@@ -66,6 +66,7 @@ from .io.streaming import (
     _cache_budget_bytes,
     prefill_device_cache,
 )
+from .ops import rotate_kernel
 from .parallel import distributed
 from .parallel.dist import from_rank0, gather_columns, sharded_eigh_fn
 from .parallel.mesh import axis_shard, is_writer, put_replicated, rank_device
@@ -197,13 +198,14 @@ def _raw_gram(shared_raw: torch.Tensor) -> torch.Tensor:
 
 def _rotate_top(U_top: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     """U_top' xb (p_k, B): the implicit scan's rotation of a block into the
-    top space, its largest GEMM.  ``_rotate_top.count`` counts the calls, so
-    a run can show how often each block was rotated; traced as a ``rotate``
+    top space, its largest GEMM (the rotation kernel on the card,
+    ops/rotate_kernel.py).  ``_rotate_top.count`` counts the calls, so a
+    run can show how often each block was rotated; traced as a ``rotate``
     span, as core/eigen.py::rotate is."""
     _rotate_top.count += 1
     with profiling.span("rotate", U_top.device, r=U_top.shape[1],
                         n=U_top.shape[0], B=xb.shape[1]):
-        return pdot(U_top.T, xb)
+        return rotate_kernel.rotate(U_top, xb)
 
 
 _rotate_top.count = 0

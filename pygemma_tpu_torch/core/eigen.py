@@ -6,8 +6,10 @@ Reference behaviour being reproduced (lmm/lmm.py:151-167, 196-211, 243-246):
 already-rotated inputs (the reference's external-eigendecomposition seam,
 experiments/large_gwas/run_pygemma.py:44-65).
 
-On the card the eigh is ``torch.linalg.eigh`` (cuSOLVER) and the rotation a
-plain float32 ``torch.matmul`` with TF32 off.
+On the card the eigh is ``torch.linalg.eigh`` (cuSOLVER); a SNP block's
+rotation is the hand-written 3xTF32 kernel of
+:mod:`pygemma_tpu_torch.ops.rotate_kernel`, the narrow rotations of W and Y
+a float32 ``torch.matmul`` with TF32 off.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, torch_dtype
+from ..ops import rotate_kernel
 from ..utils import profiling
 from .eigh_dc import eigh_dc
 
@@ -33,11 +36,13 @@ def eigendecompose(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def rotate(U: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-    """Rotate columns of M into the eigenbasis: U' M (lmm/lmm.py:243-246).
-    Traced as a ``rotate`` span of U' (r, n) times M (n, B)."""
+    """Rotate columns of M into the eigenbasis: U' M (lmm/lmm.py:243-246),
+    by :func:`pygemma_tpu_torch.ops.rotate_kernel.rotate` (the kernel for a
+    float32 SNP block on the card).  Traced as a ``rotate`` span of U'
+    (r, n) times M (n, B)."""
     with profiling.span("rotate", U.device, r=U.shape[1], n=U.shape[0],
                         B=M.shape[1] if M.ndim == 2 else 1):
-        return torch.matmul(U.T, M)
+        return rotate_kernel.rotate(U, M)
 
 
 def loading_transform(Z: torch.Tensor, K: torch.Tensor) -> torch.Tensor:

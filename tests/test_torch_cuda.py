@@ -1,6 +1,8 @@
 """Cases that need a CUDA card: the hand-written kernels against their plain
 versions (K1 also at the implicit low-rank path's shape; the REML kernel in
-every mode, with planted lanes, its launch count and a whole table), the
+every mode, with planted lanes, its launch count and a whole table; the
+rotation kernel against float64 beside cuBLAS float32, its launches counted
+on both scan paths and a whole table), the
 pinned-buffer streamer for float, 2-bit and int8 genotypes, the device block
 cache under a racing prefill, the scan on the card against the scan on the
 CPU (one phenotype and the batched four), the kinship GEMM, the command
@@ -42,6 +44,7 @@ from pygemma_tpu_torch.io.quantized import MISSING_CODE, QuantizedMatrix
 from pygemma_tpu_torch.io.streaming import SnpBlockStreamer
 from pygemma_tpu_torch.ops import gram_kernel as gk
 from pygemma_tpu_torch.ops import reml_kernel as rk
+from pygemma_tpu_torch.ops import rotate_kernel as rot
 from pygemma_tpu_torch.parallel import distributed
 
 pytestmark = pytest.mark.gpu
@@ -399,6 +402,7 @@ import oracle
 import pygemma_tpu_torch as pt
 from pygemma_tpu_torch.ops import gram_kernel as gk
 from pygemma_tpu_torch.ops import reml_kernel as rk
+from pygemma_tpu_torch.ops import rotate_kernel as rot
 from pygemma_tpu_torch.parallel.distributed import all_sum
 from pygemma_tpu_torch.parallel.mesh import make_mesh
 y, G, W, K = oracle.simulate(n=220, p=40, c=3, seed=5)
@@ -782,3 +786,110 @@ def test_reml_kernel_table_on_the_oracle_fixture(cuda):
     finally:
         solver.algebra, assoc.algebra = saved
     _close_p(df, off)
+
+
+def _rotation_inputs(r, n, B, column_major, seed):
+    """U' (r, n) with columns of norm ~1 and a standardized 2-bit-like block
+    (n, B) on the card; U row-major (the implicit top space) or
+    column-major (cuSOLVER's basis)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    U = (torch.randn(r, n, device="cuda", generator=g).T if column_major
+         else torch.randn(n, r, device="cuda", generator=g)) / n ** 0.5
+    p = torch.full((n, B), 0.3, device="cuda")
+    codes = (torch.bernoulli(p, generator=g)
+             + torch.bernoulli(p, generator=g))
+    return U, ((codes - 0.6) / 0.648).contiguous()
+
+
+@pytest.mark.parametrize("r,n,B,column_major", [
+    (16_384, 50_000, 4_096, False),  # the implicit path's block
+    (16_380, 50_000, 1_028, False),  # ... ragged, near a rank's quarter
+    (10_000, 10_000, 2_048, True),   # the dense path's block
+    (9_996, 10_000, 2_044, True),    # ... ragged
+    (9_996, 10_000, 2_044, False),
+    (1_028, 50_000, 516, True),      # cut down, the implicit path's K
+    (1_028, 50_000, 516, False),
+    # rows not a whole number of 16 bytes: U by cp.async, a block padded
+    (9_999, 9_999, 2_049, True),     # a dense cohort of 9,999: both
+    (10_001, 10_002, 2_048, True),   # U' rows of 10,002 floats
+    (16_386, 50_000, 4_096, False),  # U rows of 16,386 floats
+    (16_383, 50_001, 1_023, False),  # both, and an odd C row
+])
+def test_rotation_kernel_within_twice_cublas(cuda, r, n, B, column_major):
+    """The kernel's largest error against the float64 product is at most
+    twice that of cuBLAS's float32 torch.matmul at the same shape, whether
+    TMA or cp.async reads U and whether the block is padded; its launches
+    are bit-identical, and so are its results for either layout of the same
+    U."""
+    U, X = _rotation_inputs(r, n, B, column_major, seed=r + n + B)
+    before = rot.rotate_kernel.launches
+    got = rot.rotate(U, X)
+    torch.cuda.synchronize()
+    assert rot.rotate_kernel.launches == before + 1
+    assert got.shape == (r, B) and got.dtype == torch.float32
+    ref = torch.matmul(U.double().T, X.double())
+    err = (got.double() - ref).abs().max().item()
+    err_lib = (torch.matmul(U.T, X).double() - ref).abs().max().item()
+    assert err <= 2.0 * err_lib, (err, err_lib)
+    del ref
+    assert torch.equal(got, rot.rotate_kernel(U, X))
+    other = U.T.contiguous().T if not column_major else U.contiguous()
+    assert torch.equal(got, rot.rotate_kernel(other, X))
+
+
+@pytest.mark.parametrize("column_major", [False, True])
+def test_rotation_kernel_reads_unaligned_starts(cuda, column_major):
+    """U and the block starting one float past a 16-byte boundary (views
+    into larger storage: U read by cp.async, the block padded) give, bit
+    for bit, the product of aligned copies."""
+    r, n, B = 1_028, 10_000, 516
+    U, X = _rotation_inputs(r, n, B, column_major, seed=7)
+    Us = torch.empty(r * n + 1, device="cuda")[1:]
+    Us = (Us.view(r, n).T if column_major else Us.view(n, r))
+    Us.copy_(U)
+    Xs = torch.empty(n * B + 1, device="cuda")[1:].view(n, B)
+    Xs.copy_(X)
+    assert Us.data_ptr() % 16 and Xs.data_ptr() % 16
+    assert not rot.u_by_tma(r, n, column_major, aligned=False)
+    assert not rot.block_by_tma(B, aligned=False)
+    want = rot.rotate_kernel(U, X)
+    assert torch.equal(rot.rotate_kernel(Us, Xs), want)
+    assert torch.equal(rot.rotate_kernel(Us, X), want)
+    assert torch.equal(rot.rotate_kernel(U, Xs), want)
+
+
+def test_rotation_launches_count_the_block_rotations(cuda):
+    """On the card every block rotation is one launch and nothing else
+    launches: the implicit scan's top-space rotations (``_rotate_top``) and
+    one a block on the dense path; the rotations of W and y (c and 1
+    columns) stay on torch.matmul."""
+    from pygemma_tpu_torch import api
+
+    y, G, W, K = oracle.simulate(n=221, p=300, c=3, seed=12)  # n % 4 = 1
+    cfg = pt.GwasConfig(snp_block=128)
+    blocks = -(-G.shape[1] // 128)
+    lrk = pt.LowRankKinship(G[:, :24], eps=1e-3)
+    launches, rotations = rot.rotate_kernel.launches, api._rotate_top.count
+    pt.pygemma(y, G, W, lrk, config=cfg, device=cuda)
+    assert api._rotate_top.count - rotations == blocks
+    assert rot.rotate_kernel.launches - launches == blocks
+    launches = rot.rotate_kernel.launches
+    pt.pygemma(y, G, W, K, config=cfg, device=cuda)
+    assert rot.rotate_kernel.launches - launches == blocks
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_scan_through_the_rotation_kernel_matches_cpu(cuda, implicit):
+    """A float32 scan whose blocks go through the rotation kernel against
+    the float64 scan on the CPU, within the float32 contract."""
+    y, G, W, K = oracle.simulate(n=220, p=300, c=3, seed=13)
+    G[:, 7] = 0.0  # constant SNP: a full NaN row
+    kin = pt.LowRankKinship(G[:, 8:40], eps=1e-3) if implicit else K
+    launches = rot.rotate_kernel.launches
+    a = pt.pygemma(y, G, W, kin, config=pt.GwasConfig(snp_block=128),
+                   device=cuda)
+    assert rot.rotate_kernel.launches - launches == 3
+    b = pt.pygemma(y, G, W, kin,
+                   config=pt.GwasConfig(dtype="float64", snp_block=128),
+                   device="cpu")
+    _close_p(a, b)

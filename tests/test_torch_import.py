@@ -31,6 +31,7 @@ PORT_MODULES = [
     "pygemma_tpu_torch.io.packed", "pygemma_tpu_torch.io.plink",
     "pygemma_tpu_torch.io.quantized", "pygemma_tpu_torch.io.rawbin",
     "pygemma_tpu_torch.io.streaming", "pygemma_tpu_torch.ops.gram_kernel",
+    "pygemma_tpu_torch.ops.rotate_kernel",
     "pygemma_tpu_torch.utils.checkpoint", "pygemma_tpu_torch.utils.logging",
     "pygemma_tpu_torch.__main__", "pygemma_tpu_torch.io",
     "pygemma_tpu_torch.io.bimbam", "pygemma_tpu_torch.io.traw",
